@@ -1,0 +1,566 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (sezkp_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                     # every phase, as below
+    python3 chip_smoke.py --phases env,kernels  # a subset, while developing
+
+Phases (any failure ends the run with a non-zero exit code):
+
+  env           card name and power limit, versions; builds the native host
+                library (g++) and the CUDA kernels (nvcc) from the sources in
+                this checkout.
+  kernels       every hand-written kernel against its plain PyTorch version
+                on the card, exact equality (tolerance 0: integer code), at
+                reduced and at main-path shapes; kernel, plain and bound times.
+  prove         T = 2^20, b = 512, tau = 8: generate_trace -> partition_trace
+                -> commit_blocks -> StarkV1.prove (on the card) ->
+                StarkV1.verify; a tampered proof is rejected; a second prove
+                is byte-identical; every kernel's launch count over the prove
+                is > 0; wall time per stage and peak device memory.
+  parity-small  T = 2^15: the proof made on the card equals, byte for byte,
+                the proof made with device="cpu" (kernels against the plain
+                versions through the whole pipeline).
+  sass          only when asked for (--phases env,sass): disassembles the
+                built kernels and a one-primitive probe and prints the
+                instruction counts, by issue pipe, that the operation bounds
+                of the kernels phase rest on; the text goes to chiprun_out/sass/.
+
+Output: progress lines, then one JSON line {"kernels": [...]} with one entry
+per kernel, then the card's name and power limit, then as the last line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Without a CUDA device the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+from collections import Counter
+
+import numpy as np
+import torch
+
+# Peaks of one H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM; 67 TFLOP/s of
+# float32 outside the tensor cores, which is 128 lanes x 2 (FMA) per SM-clock.
+# 32-bit integer instructions issue on two pipes, the multiply-add pipe (the
+# IMAD family) and the ALU (IADD3, LOP3, SHF, ISETP, SEL ...), each with half
+# those lanes and no FMA doubling: a quarter of the float32 rate per pipe.
+HBM_BYTES_PER_S = 3.35e12
+INT_PIPE_OPS_PER_S = 67e12 / 4
+# Machine instructions (multiply-add pipe, ALU pipe) of the field primitives
+# and of one BLAKE3 compression, counted in the disassembly of this source
+# built with nvcc 12.9 for sm_90a (`--phases env,sass` prints them anew):
+# gl::mul is 5 IMAD.WIDE.U32 + 8 more of the IMAD family and 21 ALU
+# instructions; a compression is 224 adds (108 of them compiled to IMAD.IADD),
+# 232 LOP3 and 224 SHF. Indexing, loads and stores are not counted.
+GL_MUL_OPS, GL_ADD_OPS, GL_SUB_OPS = (13, 21), (3, 11), (1, 7)
+B3_OPS = (108, 572)
+
+
+def ops_ms(n: int, per_item) -> float:
+    """Least milliseconds for n items of (multiply-add, ALU) instructions each:
+    the two pipes issue side by side, so the fuller one bounds."""
+    return n * max(per_item) / INT_PIPE_OPS_PER_S * 1e3
+
+
+def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Largest |got - want| over the elements read as unsigned integers (exact)."""
+    ne = got != want
+    if not bool(ne.any()):
+        return 0
+    bits = np.uint64 if got.dtype == torch.int64 else np.uint32
+    g = got[ne].cpu().numpy().view(bits).astype(np.uint64)
+    w = want[ne].cpu().numpy().view(bits).astype(np.uint64)
+    return int(np.where(g > w, g - w, w - g).max())
+
+ALL_PHASES = ("env", "kernels", "prove", "parity-small")
+# run only when asked for: the disassembly that the operation counts are read from
+EXTRA_PHASES = ("sass",)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def time_cuda(fn, reps: int) -> float:
+    """Milliseconds per call: CUDA events around `reps` back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+# ---------------------------------- phases ----------------------------------
+
+
+def phase_env(state) -> None:
+    state["smi"] = nvidia_smi_line()
+    log(f"[env] card: {state['smi']}")
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.time()
+    # importing the host hasher builds the native library when it is missing
+    from sezkp_tpu_torch.crypto import blake3 as b3
+    from sezkp_tpu_torch.ops import _kernels
+
+    b3.build_native()
+    if not b3.HAVE_NATIVE:
+        fail("native host library (g++) did not build or load")
+    t1 = time.time()
+    _kernels.lib()
+    log(f"[env] set-up: native host lib {t1 - t0:.1f} s, CUDA kernels {_kernels.build_seconds:.1f} s")
+
+
+def _field_rand(shape, gen, dev):
+    """Random canonical field elements with the edge values 0 and p-1 planted."""
+    from sezkp_tpu_torch.ops import goldilocks_torch as FT
+
+    hi = torch.randint(0, 1 << 32, shape, generator=gen, device=dev, dtype=torch.int64)
+    lo = torch.randint(0, 1 << 32, shape, generator=gen, device=dev, dtype=torch.int64)
+    x = FT._canon((hi << 32) | lo)
+    flat = x.view(-1)
+    flat[0] = 0
+    flat[1] = FT._i64(FT.P_INT - 1)
+    flat[-1] = FT._i64(FT.P_INT - 1)
+    return x
+
+
+def _words_rand(n, gen, dev):
+    """Random int32 [16, n] message words (any 32-bit pattern)."""
+    w = torch.randint(0, 1 << 32, (16, n), generator=gen, device=dev, dtype=torch.int64)
+    return w.to(torch.int32)
+
+
+def phase_kernels(state) -> None:
+    from sezkp_tpu_torch.ops import blake3_torch as BT
+    from sezkp_tpu_torch.ops import goldilocks as G
+    from sezkp_tpu_torch.ops import ntt as ntt_host
+    from sezkp_tpu_torch.ops import ntt_torch as NT
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    kern = {}
+
+    # ---- K1 blake3_compress
+    err = 0
+    for n in (1 << 20, 1000003, 1):
+        m16 = _words_rand(n, gen, dev)
+        for block_len in (8, 27, 64):
+            for out_words in (8, 16):
+                got = BT.compress(m16, block_len, BT.LEAF_FLAGS, out_words)
+                want = BT.compress_plain(m16, block_len, BT.LEAF_FLAGS, out_words)
+                torch.cuda.synchronize()
+                err = max(err, max_abs_diff(got, want))
+                if err:
+                    fail(f"K1 blake3_compress != plain at N={n} block_len={block_len} "
+                         f"out_words={out_words}: max |difference| {err}")
+    # main-path shape: the FRI layer-0 leaves of a T = 2^20 prove
+    n = 1 << 23
+    m16 = _words_rand(n, gen, dev)
+    out = torch.empty((8, n), dtype=torch.int32, device=dev)
+    got = BT.compress(m16, 8, BT.LEAF_FLAGS, 8, out=out)
+    want = BT.compress_plain(m16, 8, BT.LEAF_FLAGS, 8)
+    err = max_abs_diff(got, want)
+    if err:
+        fail(f"K1 blake3_compress != plain at N=2^23: max |difference| {err}")
+    ms = time_cuda(lambda: BT.compress(m16, 8, BT.LEAF_FLAGS, 8, out=out), 20)
+    plain_ms = time_cuda(lambda: BT.compress_plain(m16, 8, BT.LEAF_FLAGS, 8), 1)
+    b_bytes = n * (64 + 32) / HBM_BYTES_PER_S * 1e3
+    b_ops = ops_ms(n, B3_OPS)
+    kern["blake3_compress"] = dict(
+        name="blake3_compress", route="cuda",
+        source="sezkp_tpu_torch/ops/csrc/blake3_compress.cu",
+        replaces="sezkp_tpu/ops/blake3_pallas.py:108",
+        shape=f"int32 [16, 2^23] -> [8, 2^23], block_len 8",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(b_bytes, b_ops), bound_by="bytes" if b_bytes >= b_ops else "operations",
+        library_ms=None,
+    )
+    del m16, out, got, want
+    log(f"[kernels] K1 blake3_compress == plain (N = 2^20, 1000003, 1, 2^23): {ms:.3f} ms at 2^23")
+
+    # ---- K2-K4: the phases of n = 2^14, 2^15 (two-factor), 2^17, 2^18, 2^20 inverse, 2^23 forward
+    def bound(n_el, m_log2, twiddles, table_el):
+        """A phase reads and writes each element once (16 B) and its tables
+        once; an element takes m_log2 / 2 butterflies (mul, add, sub) and
+        `twiddles` further multiplies."""
+        b_bytes = (16 * n_el + 8 * table_el) / HBM_BYTES_PER_S * 1e3
+        per_el = tuple(m_log2 * (mu + ad + su) / 2 + twiddles * mu
+                       for mu, ad, su in zip(GL_MUL_OPS, GL_ADD_OPS, GL_SUB_OPS))
+        b_ops = ops_ms(n_el, per_el)
+        return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations")
+
+    errs = {"ntt_phase_axis": 0, "ntt_phase_batched": 0, "ntt_phase_last": 0}
+
+    def hold(name, got, want, what):
+        torch.cuda.synchronize()
+        errs[name] = max(errs[name], max_abs_diff(got, want))
+        if errs[name]:
+            fail(f"{name} != plain at {what}: max |difference| {errs[name]}")
+
+    for n_log2, inverse in ((14, False), (14, True), (15, False), (15, True), (17, False), (17, True),
+                            (18, False), (18, True), (20, True), (23, False)):
+        n = 1 << n_log2
+        logs = NT._factor_logs(n_log2)
+        inv_n = G.inv(n) if inverse else 1
+        a = _field_rand((n,), gen, dev)
+        what = f"n=2^{n_log2} inverse={inverse}"
+        main = (n_log2, inverse) in ((20, True), (23, False))
+        if len(logs) == 2:
+            l1, l2 = logs
+            m1, m2 = 1 << l1, 1 << l2
+            tw = NT._twiddle_matrix(l1, l2, inverse, dev)
+            x0 = a.reshape(m1, m2)
+            x1 = NT.phase_axis(x0, 0, inverse, tw=tw)
+            hold("ntt_phase_axis", x1, NT.phase_axis_plain(x0, 0, inverse, tw=tw), what + " axis 0")
+            x2 = NT.phase_axis(x1, 1, inverse, scale=inv_n)
+            hold("ntt_phase_axis", x2, NT.phase_axis_plain(x1, 1, inverse, scale=inv_n), what + " axis 1")
+            res = x2.T.reshape(n)
+        else:
+            l1, l2, l3 = logs
+            m1, m2, m3 = 1 << l1, 1 << l2, 1 << l3
+            ta, tb = NT._t_outer(l1, l2, l3, inverse, dev)
+            tm = NT._t_mid(l2, l3, inverse, dev)
+            x0 = a.reshape(m1, m2 * m3)
+            x1 = NT.phase_axis(x0, 0, inverse, tw=tb, tw_period=m3)
+            p1 = NT.phase_axis_plain(x0, 0, inverse, tw=tb, tw_period=m3)
+            hold("ntt_phase_axis", x1, p1, what)
+            x1 = x1.reshape(m1, m2, m3)
+            x2 = NT.phase_batched(x1, inverse, ta=ta, t=tm)
+            p2 = NT.phase_batched_plain(x1, inverse, ta=ta, t=tm)
+            hold("ntt_phase_batched", x2, p2, what)
+            x3 = NT.phase_last(x2, inverse, scale=inv_n)
+            p3 = NT.phase_last_plain(x2, inverse, scale=inv_n)
+            hold("ntt_phase_last", x3, p3, what)
+            res = x3.reshape(n)
+            if main and n_log2 == 23:
+                # times at the largest main-path shape (the coset NTT of a T = 2^20 prove)
+                for name, fn, plain, shp, mlog, ntw, tab in (
+                    ("ntt_phase_axis",
+                     lambda: NT.phase_axis(x0, 0, inverse, tw=tb, tw_period=m3),
+                     lambda: NT.phase_axis_plain(x0, 0, inverse, tw=tb, tw_period=m3),
+                     f"int64 [{m1}, {m2 * m3}] axis 0, periodic twiddle [{m1}, {m3}]",
+                     l1, 1, m1 * m3 + m1 // 2),
+                    ("ntt_phase_batched",
+                     lambda: NT.phase_batched(x1, inverse, ta=ta, t=tm),
+                     lambda: NT.phase_batched_plain(x1, inverse, ta=ta, t=tm),
+                     f"int64 [{m1}, {m2}, {m3}], ta [{m1}, {m2}], t [{m2}, {m3}]",
+                     l2, 2, m1 * m2 + m2 * m3 + m2 // 2),
+                    ("ntt_phase_last",
+                     lambda: NT.phase_last(x2, inverse, scale=inv_n),
+                     lambda: NT.phase_last_plain(x2, inverse, scale=inv_n),
+                     f"int64 [{m1}, {m2}, {m3}] -> [{m3}, {m2}, {m1}]",
+                     l3, 0, m3 // 2),
+                ):
+                    ms = time_cuda(fn, 20)
+                    plain_ms = time_cuda(plain, 1)
+                    bnd, by = bound(n, mlog, ntw, tab)
+                    kern[name] = dict(
+                        name=name, route="cuda", source="sezkp_tpu_torch/ops/csrc/ntt_phases.cu",
+                        shape=shp, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                        library_ms=None,
+                    )
+        # whole transform against the host oracle at the sizes numpy does quickly
+        if n_log2 <= 18:
+            ref = ntt_host.inverse_ntt(_to_u64(a)) if inverse else ntt_host.forward_ntt(_to_u64(a))
+            if not np.array_equal(_to_u64(res), ref):
+                fail(f"NTT != host oracle at {what}")
+        log(f"[kernels] NTT phases == plain at {what} (factors {logs})")
+        del a, res
+
+    kern["ntt_phase_axis"]["replaces"] = "sezkp_tpu/ops/ntt_mxu.py:374"
+    kern["ntt_phase_batched"]["replaces"] = "sezkp_tpu/ops/ntt_mxu.py:475"
+    kern["ntt_phase_last"]["replaces"] = "sezkp_tpu/ops/ntt_mxu.py:540"
+    for name, e in errs.items():
+        kern[name]["max_abs_err"] = e
+
+    # whole forward/inverse round trip at 2^23
+    a = _field_rand((1 << 23,), gen, dev)
+    back = NT.inverse_ntt(NT.forward_ntt(a))
+    torch.cuda.synchronize()
+    if not torch.equal(back, a):
+        fail("inverse_ntt(forward_ntt(x)) != x at n = 2^23")
+    log("[kernels] forward/inverse round trip at 2^23 ok")
+
+    # what the wrappers must refuse on the card, where no plain version stands in
+    def refuses(exc, what, fn):
+        try:
+            fn()
+        except exc:
+            return
+        fail(f"{what}: expected {exc.__name__}")
+
+    refuses(NotImplementedError, "forward_ntt of n = 2^10 on the card (below the kernels' sizes)",
+            lambda: NT.forward_ntt(a[: 1 << 10].clone()))
+    refuses(ValueError, "compress of int64 words",
+            lambda: BT.compress(torch.zeros((16, 8), dtype=torch.int64, device=dev), 64, BT.LEAF_FLAGS))
+    refuses(ValueError, "phase_axis of a non-contiguous view",
+            lambda: NT.phase_axis(torch.zeros((8, 8), dtype=torch.int64, device=dev).T, 0, False))
+    log("[kernels] the wrappers refuse small n, wrong dtype and non-contiguous input")
+
+    # the plain tensor steps of the DEEP glue and the FRI fold, which no
+    # kernel covers (they are outside any kernel in the JAX package too)
+    from sezkp_tpu_torch.ops import goldilocks_torch as FT
+
+    half = a.shape[0] // 2
+    glue = {
+        "pow_p_minus_2": time_cuda(lambda: FT.pow_p_minus_2(a), 1),
+        "mul": time_cuda(lambda: FT.mul(a, back), 5),
+        "fri_fold": time_cuda(
+            lambda: FT.add(a[:half], FT.mul(FT.scalar(12345, a), a[half:])), 5),
+    }
+    state["glue_ms"] = glue
+    log("[kernels] plain tensor glue at 2^23 elements (ms): "
+        + json.dumps({k: round(v, 3) for k, v in glue.items()}))
+    state["kernels"] = kern
+
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
+
+
+def _sass_functions(cuobjdump: str, binary: str):
+    """(whole text, {function: [(address, opcode, operands), ...]}) of a cubin or library."""
+    text = subprocess.run([cuobjdump, "-sass", binary], capture_output=True, text=True, check=True).stdout
+    funcs = {}
+    for chunk in text.split("Function : ")[1:]:
+        funcs[chunk.split()[0]] = [(int(a, 16), op, rest) for a, op, rest in _SASS_LINE.findall(chunk)]
+    return text, funcs
+
+
+def _pipe(op: str) -> str:
+    """The issue pipe of an integer instruction on sm_90: multiply-add family or ALU."""
+    return "imad" if op.startswith(("IMAD", "UIMAD")) else "alu"
+
+
+def phase_sass(state) -> None:
+    """Count the machine instructions that the operation bounds rest on.
+
+    1. Compiles ops/csrc/gl_probe.cu (one Goldilocks primitive per kernel),
+       disassembles it and prints, for mul, add and sub, the instructions
+       beyond those of the base probe, split by issue pipe.
+    2. Disassembles the built kernel library: the whole `cuobjdump -sass`
+       text goes to chiprun_out/sass/kernels.sass, and the opcode histogram
+       of every kernel and of every loop in it (a backward branch and the
+       instructions it spans) to chiprun_out/sass/loops.txt."""
+    from sezkp_tpu_torch.ops import _kernels
+
+    nvcc = _kernels._find_nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    os.makedirs("chiprun_out/sass", exist_ok=True)
+    ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True).stdout.strip().splitlines()[-2:]
+    log("[sass] " + " | ".join(ver))
+
+    cubin = os.path.join(_kernels._BUILD_DIR, "gl_probe.cubin")
+    subprocess.run([nvcc, *_kernels._NVCC_FLAGS[:-2], "-I", _kernels._CSRC, "-cubin",
+                    os.path.join(_kernels._CSRC, "gl_probe.cu"), "-o", cubin],
+                   capture_output=True, text=True, check=True)
+    text, probes = _sass_functions(cuobjdump, cubin)
+    with open("chiprun_out/sass/gl_probe.sass", "w") as f:
+        f.write(text)
+    base = Counter(op for _, op, _ in probes["probe_base"])
+    counts = {}
+    for prim in ("mul", "add", "sub"):
+        extra = Counter(op for _, op, _ in probes["probe_" + prim])
+        extra.subtract(base)
+        extra["LOP3.LUT"] += base["LOP3.LUT"]  # the base's own xor is not indexing
+        extra = {op: c for op, c in extra.items() if c and op not in ("NOP", "BRA")}
+        pipes = Counter()
+        for op, c in extra.items():
+            pipes[_pipe(op)] += c
+        counts[prim] = dict(pipes)
+        log(f"[sass] gl::{prim}: {json.dumps(dict(pipes))} from {json.dumps(extra)}")
+    log("[sass] primitive counts: " + json.dumps(counts))
+
+    text, funcs = _sass_functions(cuobjdump, _kernels.build())
+    with open("chiprun_out/sass/kernels.sass", "w") as f:
+        f.write(text)
+    out = ["# " + " | ".join(ver)]
+    for name, ins in funcs.items():
+        hist = Counter(op for _, op, _ in ins)
+        pipes = Counter(_pipe(op) for _, op, _ in ins)
+        out.append(f"== {name}: {len(ins)} instructions, imad-family {pipes['imad']}")
+        out.append("   all: " + json.dumps(hist.most_common()))
+        for addr, op, rest in ins:
+            m = re.search(r"0x([0-9a-f]+)\s*$", rest.strip())
+            if op.startswith("BRA") and m and int(m.group(1), 16) <= addr:
+                lo = int(m.group(1), 16)
+                body = [o for a, o, _ in ins if lo <= a <= addr]
+                out.append(f"   loop 0x{lo:04x}..0x{addr:04x}: {len(body)} instructions "
+                           + json.dumps(Counter(body).most_common()))
+    with open("chiprun_out/sass/loops.txt", "w") as f:
+        f.write("\n".join(out) + "\n")
+    for line in out:
+        if line.startswith("=="):
+            log("[sass] " + line)
+    log("[sass] full text and loop histograms under chiprun_out/sass/")
+
+
+def _to_u64(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().contiguous().numpy().view(np.uint64)
+
+
+def _wrappers():
+    from sezkp_tpu_torch.ops import blake3_torch as BT
+    from sezkp_tpu_torch.ops import ntt_torch as NT
+
+    return {
+        "blake3_compress": BT.compress,
+        "ntt_phase_axis": NT.phase_axis,
+        "ntt_phase_batched": NT.phase_batched,
+        "ntt_phase_last": NT.phase_last,
+    }
+
+
+def _make_input(t: int, b: int, tau: int):
+    from sezkp_tpu_torch.commit.merkle import commit_blocks
+    from sezkp_tpu_torch.trace.generator import generate_trace
+    from sezkp_tpu_torch.trace.partition import partition_trace
+
+    t0 = time.time()
+    blocks = partition_trace(generate_trace(t, tau), b)
+    man = commit_blocks(blocks)
+    return blocks, man, time.time() - t0
+
+
+def _tamper(art):
+    from sezkp_tpu_torch.core.artifact import ProofArtifact
+
+    pb = bytearray(art.proof_bytes)
+    pb[len(pb) // 2] ^= 0x01
+    return ProofArtifact(
+        backend=art.backend, manifest_root=art.manifest_root, proof_bytes=bytes(pb), meta=art.meta
+    )
+
+
+def phase_prove(state) -> None:
+    from sezkp_tpu_torch.stark.backends import StarkV1
+
+    t_log2, b, tau = 20, 512, 8
+    blocks, man, t_in = _make_input(1 << t_log2, b, tau)
+    log(f"[prove] T = 2^{t_log2}, b = {b}, tau = {tau}: {len(blocks)} blocks, input made in {t_in:.1f} s")
+
+    wrappers = _wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    timings = {}
+    t0 = time.time()
+    art = StarkV1.prove(blocks, man.root, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    state["launches"] = launches
+    log(f"[prove] first prove wall {wall:.2f} s; stages (s): "
+        + json.dumps({k: round(v, 3) for k, v in timings.items()}))
+    log(f"[prove] peak device memory {peak} bytes; proof {len(art.proof_bytes)} bytes; launches {json.dumps(launches)}")
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"kernel {k} was never launched by the prove")
+
+    t0 = time.time()
+    StarkV1.verify(art, blocks, man.root)
+    log(f"[prove] verify OK in {time.time() - t0:.2f} s")
+
+    try:
+        StarkV1.verify(_tamper(art), blocks, man.root)
+    except Exception as e:  # the verifier's rejection is what this step wants
+        log(f"[prove] tampered proof rejected: {type(e).__name__}: {str(e)[:80]}")
+    else:
+        fail("tampered proof was accepted")
+
+    timings2 = {}
+    t0 = time.time()
+    art2 = StarkV1.prove(blocks, man.root, timings=timings2)
+    torch.cuda.synchronize()
+    wall2 = time.time() - t0
+    h1 = hashlib.sha256(art.proof_bytes).hexdigest()
+    h2 = hashlib.sha256(art2.proof_bytes).hexdigest()
+    log(f"[prove] second prove (twiddle tables cached) wall {wall2:.2f} s; stages (s): "
+        + json.dumps({k: round(v, 3) for k, v in timings2.items()}))
+    log(f"[prove] sha256 {h1} / {h2}")
+    if h1 != h2:
+        fail("two proves of the same input differ")
+
+
+def phase_parity_small(state) -> None:
+    from sezkp_tpu_torch.stark.backends import StarkV1
+
+    blocks, man, _ = _make_input(1 << 15, 512, 8)
+    on_card = StarkV1.prove(blocks, man.root)
+    on_cpu = StarkV1.prove(blocks, man.root, device="cpu")
+    if on_card.proof_bytes != on_cpu.proof_bytes:
+        fail("T = 2^15: the proof made on the card differs from the proof made on the CPU")
+    StarkV1.verify(on_card, blocks, man.root)
+    log(f"[parity-small] T = 2^15: card and CPU proofs byte-identical "
+        f"(sha256 {hashlib.sha256(on_card.proof_bytes).hexdigest()})")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma-separated subset of: " + ", ".join(ALL_PHASES + EXTRA_PHASES))
+    args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    for p in phases:
+        if p not in ALL_PHASES + EXTRA_PHASES:
+            fail(f"unknown phase {p}")
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script measures the port on the card only",
+              file=sys.stderr)
+        sys.exit(2)
+
+    state = {}
+    t_start = time.time()
+    run = {"env": phase_env, "kernels": phase_kernels, "prove": phase_prove,
+           "parity-small": phase_parity_small, "sass": phase_sass}
+    if "env" not in phases:
+        state["smi"] = nvidia_smi_line()
+    for p in phases:
+        t0 = time.time()
+        run[p](state)
+        log(f"[{p}] done in {time.time() - t0:.1f} s")
+
+    kernels = []
+    for name, k in state.get("kernels", {}).items():
+        k = dict(k)
+        # the count over the prove phase; null when that phase was not asked for
+        k["launches"] = state["launches"][name] if "launches" in state else None
+        kernels.append(k)
+    log(f"total {time.time() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(state["smi"], flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

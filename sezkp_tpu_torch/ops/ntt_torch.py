@@ -1,0 +1,389 @@
+"""Multi-step Goldilocks NTT on torch tensors, and the DEEP coset LDE glue.
+
+Counterpart of sezkp_tpu/ops/ntt_mxu.py (the phase kernels and their
+composition), of ``ntt_jax._ntt_stages`` (the radix-2 stages, used here as
+the plain version) and of the DEEP glue of sezkp_tpu/ops/ntt_pallas.py
+(``scale_pad``, ``deep_divide``, ``deep_coset_lde_planes``).
+
+A transform of n = m1*m2 (two factors) or m1*m2*m3 (three, from 2^18 up)
+points runs as one kernel launch per factor, natural order in and out, the
+inverse's n^-1 folded into the last phase:
+
+- **K2 ``ntt_phase_axis``** replaces ``ntt_mxu._dft_call``: DFT along axis 0
+  of ``[m, other]`` (or axis 1 of ``[other, m]``), then an optional twiddle
+  table (full, or periodic along the columns) and an optional scale.
+- **K3 ``ntt_phase_batched``** replaces ``ntt_mxu._batched_call``: on
+  ``[m1, mc, cols]``, per k1 an optional pre-multiply by ``ta[k1, a2]``, the
+  DFT along the middle axis, an optional twiddle ``t[k2, b3]``.
+- **K4 ``ntt_phase_last``** replaces ``ntt_mxu._last_call_t``: DFT along the
+  last axis of ``[m1, m2, mc]``, written transposed as ``[mc, m2, m1]`` so the
+  flat result is in natural order.
+
+All three are in csrc/ntt_phases.cu. Each moves 16 B per element per phase
+plus the twiddle reads, and does log2(m)/2 butterflies per element. In the
+sm_90a disassembly a butterfly's field arithmetic is 56 instructions (modular
+multiply 34, add 14, subtract 8), 39 of them on the ALU pipe: by those counts
+the integer rate of an H100, not its memory, is the nearer bound at the main
+path's shapes (chip_smoke.py computes both). The phase-A twiddle of the three-factor form stays split into
+``ta`` (rides K3) and a periodic ``tb`` (rides K2): two small tables that stay
+in cache instead of one of n elements to stream.
+Each wrapper launches its kernel for a CUDA tensor and runs its plain
+version only for a CPU tensor. Until the small-n kernels are ported, a CUDA
+tensor with n < 2^MIN_LOG2 raises NotImplementedError.
+
+The elementwise field work of the DEEP glue (``x - z``, the batched inverse by
+``x^(p-2)``, the final product) is plain tensor code on either device, as it
+is outside any kernel in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from . import _kernels
+from . import goldilocks as G
+from . import goldilocks_torch as FT
+from . import ntt as ntt_host
+
+MIN_LOG2 = 14  # below this the JAX package uses its roll-based kernels (not ported yet)
+
+_tables: Dict[Tuple, torch.Tensor] = {}
+
+
+def _cached(key: Tuple, device, make) -> torch.Tensor:
+    """Twiddle/table tensors are cached per (kind, sizes, inverse, device)."""
+    device = torch.device(device)
+    k = key + (str(device),)
+    t = _tables.get(k)
+    if t is None:
+        t = FT.pack(make(), device)
+        _tables[k] = t
+    return t
+
+
+def _factor_logs(n_log2: int) -> list:
+    """Balanced factor logs, each <= 10, smallest first."""
+    k = 2 if n_log2 <= 17 else 3
+    q, r = divmod(n_log2, k)
+    return [q] * (k - r) + [q + 1] * r
+
+
+def _root(n_log2: int, inverse: bool) -> int:
+    w = G.primitive_root_2exp(n_log2)
+    return G.inv(w) if inverse else w
+
+
+def _wp(m_log2: int, inverse: bool, device) -> torch.Tensor:
+    """w_m^k for k < m/2 (the butterflies' twiddles), int64 [m/2]."""
+    return _cached(
+        ("wp", m_log2, inverse), device,
+        lambda: ntt_host.powers(_root(m_log2, inverse), max(1 << (m_log2 - 1), 1)),
+    )
+
+
+def _twiddle_matrix(l1: int, l2: int, inverse: bool, device) -> torch.Tensor:
+    """T[k1, j2] = w_n^(k1*j2), n = 2^(l1+l2), int64 [m1, m2]."""
+
+    def make():
+        n_log2 = l1 + l2
+        wp = ntt_host.powers(_root(n_log2, inverse), 1 << n_log2)
+        k1 = np.arange(1 << l1, dtype=np.uint64)[:, None]
+        j2 = np.arange(1 << l2, dtype=np.uint64)[None, :]
+        return wp[(k1 * j2) & np.uint64((1 << n_log2) - 1)]
+
+    return _cached(("tmat", l1, l2, inverse), device, make)
+
+
+def _t_outer(l1: int, l2: int, l3: int, inverse: bool, device):
+    """Phase-A twiddle of the three-factor form, w_n^(k1*(a2*m3+a3)), split as
+    TA[k1, a2] = w_n^(m3*k1*a2) ([m1, m2]) times TB[k1, a3] = w_n^(k1*a3)
+    ([m1, m3]): m1*(m2+m3) table elements to read instead of n."""
+    m1, m2, m3 = 1 << l1, 1 << l2, 1 << l3
+    n_log2 = l1 + l2 + l3
+    n_mask = (1 << n_log2) - 1
+
+    def wp():
+        return ntt_host.powers(_root(n_log2, inverse), 1 << n_log2)
+
+    k1 = np.arange(m1, dtype=np.int64)
+
+    def make_ta():
+        a2 = np.arange(m2, dtype=np.int64)
+        return wp()[((m3 * k1[:, None] * a2[None, :]) & n_mask).astype(np.uint64)]
+
+    def make_tb():
+        a3 = np.arange(m3, dtype=np.int64)
+        return wp()[((k1[:, None] * a3[None, :]) & n_mask).astype(np.uint64)]
+
+    return (
+        _cached(("ta", l1, l2, l3, inverse), device, make_ta),
+        _cached(("tb", l1, l2, l3, inverse), device, make_tb),
+    )
+
+
+def _t_mid(l_mid: int, l_last: int, inverse: bool, device) -> torch.Tensor:
+    """Middle-phase twiddle w_r^(k2*b3), r = m_mid*m_last, int64 [m_mid, m_last]."""
+
+    def make():
+        wp = ntt_host.powers(_root(l_mid + l_last, inverse), 1 << (l_mid + l_last))
+        k2 = np.arange(1 << l_mid, dtype=np.uint64)
+        b3 = np.arange(1 << l_last, dtype=np.uint64)
+        return wp[k2[:, None] * b3[None, :]]
+
+    return _cached(("tmid", l_mid, l_last, inverse), device, make)
+
+
+# ------------------------------ plain versions ------------------------------
+
+
+def _stage_tables(m_log2: int, inverse: bool, device):
+    return [
+        _cached(("stage", m_log2, s, inverse), device, lambda t=t: t)
+        for s, t in enumerate(ntt_host.twiddle_tables(m_log2, inverse), start=1)
+    ]
+
+
+def _ntt_stages(x: torch.Tensor, m_log2: int, inverse: bool) -> torch.Tensor:
+    """Radix-2 DIT stages over the LAST axis; leading axes are batch dims."""
+    m = 1 << m_log2
+    tables = _stage_tables(m_log2, inverse, x.device)
+    perm = torch.as_tensor(ntt_host.bitrev_permutation(m), device=x.device)
+    x = x[..., perm]
+    batch = x.shape[:-1]
+    for s in range(1, m_log2 + 1):
+        half = 1 << (s - 1)
+        blk = x.reshape(batch + (m >> s, 2, half))
+        u = blk[..., 0, :]
+        v = FT.mul(blk[..., 1, :], tables[s - 1])
+        x = torch.stack([FT.add(u, v), FT.sub(u, v)], dim=-2).reshape(batch + (m,))
+    return x
+
+
+def _scaled(y, scale: int):
+    return y if scale == 1 else FT.mul(y, FT.scalar(scale, y))
+
+
+def phase_axis_plain(x, axis: int, inverse: bool, tw=None, tw_period=None, scale: int = 1):
+    """Plain PyTorch version of K2."""
+    if axis == 0:
+        m, other = x.shape
+        y = _ntt_stages(x.T, m.bit_length() - 1, inverse).T
+        if tw is not None:
+            if tw_period is not None:
+                tw = tw.repeat(1, other // tw_period)
+            y = FT.mul(y, tw)
+    else:
+        other, m = x.shape
+        y = _ntt_stages(x, m.bit_length() - 1, inverse)
+        if tw is not None:
+            y = FT.mul(y, tw)
+    return _scaled(y, scale).contiguous()
+
+
+def phase_batched_plain(x, inverse: bool, ta=None, t=None):
+    """Plain PyTorch version of K3: x [m1, mc, cols]."""
+    m1, mc, cols = x.shape
+    if ta is not None:
+        x = FT.mul(x, ta[:, :, None])
+    y = _ntt_stages(x.transpose(1, 2), mc.bit_length() - 1, inverse).transpose(1, 2)
+    if t is not None:
+        y = FT.mul(y, t[None, :, :])
+    return y.contiguous()
+
+
+def phase_last_plain(x, inverse: bool, scale: int = 1):
+    """Plain PyTorch version of K4: x [m1, m2, mc] -> [mc, m2, m1]."""
+    mc = x.shape[2]
+    y = _ntt_stages(x, mc.bit_length() - 1, inverse)
+    return _scaled(y, scale).permute(2, 1, 0).contiguous()
+
+
+# ------------------------------ kernel wrappers -----------------------------
+
+
+def _check_field(x: torch.Tensor, dims: int, what: str) -> None:
+    if x.dtype != torch.int64 or x.dim() != dims or not x.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous int64 tensor with {dims} dims")
+
+
+def _ptr(t, device) -> int:
+    if t is None:
+        return 0
+    if t.dtype != torch.int64 or not t.is_contiguous() or t.device != device:
+        raise ValueError("twiddle tables must be contiguous int64 tensors on the data's device")
+    return t.data_ptr()
+
+
+def phase_axis(x, axis: int, inverse: bool, tw=None, tw_period=None, scale: int = 1):
+    """K2 wrapper. axis 0: x [m, other]; axis 1: x [other, m]. tw: full table
+    of x's shape, or (axis 0 only) [m, tw_period] repeating along columns."""
+    if not x.is_cuda:
+        return phase_axis_plain(x, axis, inverse, tw, tw_period, scale)
+    _check_field(x, 2, "phase_axis")
+    m, other = (x.shape[0], x.shape[1]) if axis == 0 else (x.shape[1], x.shape[0])
+    m_log2 = m.bit_length() - 1
+    if tw is not None:
+        want = (m, tw_period) if tw_period is not None else tuple(x.shape)
+        if tuple(tw.shape) != want or (tw_period is not None and other % tw_period):
+            raise ValueError("twiddle table shape does not match")
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = _kernels.lib().sezkp_ntt_phase_axis(
+            x.data_ptr(), y.data_ptr(), m_log2, other, axis,
+            _wp(m_log2, inverse, x.device).data_ptr(), _ptr(tw, x.device),
+            int(tw_period or 0), int(scale), _kernels.stream_ptr(),
+        )
+    _kernels.check(rc, "ntt_phase_axis")
+    phase_axis.launches += 1
+    return y
+
+
+def phase_batched(x, inverse: bool, ta=None, t=None):
+    """K3 wrapper: x [m1, mc, cols] -> same shape. ta [m1, mc], t [mc, cols]."""
+    if not x.is_cuda:
+        return phase_batched_plain(x, inverse, ta, t)
+    _check_field(x, 3, "phase_batched")
+    m1, mc, cols = x.shape
+    if ta is not None and tuple(ta.shape) != (m1, mc):
+        raise ValueError("ta must be [m1, mc]")
+    if t is not None and tuple(t.shape) != (mc, cols):
+        raise ValueError("t must be [mc, cols]")
+    mc_log2 = mc.bit_length() - 1
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = _kernels.lib().sezkp_ntt_phase_batched(
+            x.data_ptr(), y.data_ptr(), m1, mc_log2, cols,
+            _wp(mc_log2, inverse, x.device).data_ptr(),
+            _ptr(ta, x.device), _ptr(t, x.device), _kernels.stream_ptr(),
+        )
+    _kernels.check(rc, "ntt_phase_batched")
+    phase_batched.launches += 1
+    return y
+
+
+def phase_last(x, inverse: bool, scale: int = 1):
+    """K4 wrapper: x [m1, m2, mc] -> [mc, m2, m1] (flat = natural order)."""
+    if not x.is_cuda:
+        return phase_last_plain(x, inverse, scale)
+    _check_field(x, 3, "phase_last")
+    m1, m2, mc = x.shape
+    mc_log2 = mc.bit_length() - 1
+    y = torch.empty((mc, m2, m1), dtype=torch.int64, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _kernels.lib().sezkp_ntt_phase_last(
+            x.data_ptr(), y.data_ptr(), m1, m2, mc_log2,
+            _wp(mc_log2, inverse, x.device).data_ptr(), int(scale), _kernels.stream_ptr(),
+        )
+    _kernels.check(rc, "ntt_phase_last")
+    phase_last.launches += 1
+    return y
+
+
+phase_axis.launches = 0
+phase_batched.launches = 0
+phase_last.launches = 0
+
+
+# ------------------------------ whole transforms -----------------------------
+
+
+def _ntt(a: torch.Tensor, inverse: bool) -> torch.Tensor:
+    n = int(a.shape[0])
+    n_log2 = n.bit_length() - 1
+    assert a.dim() == 1 and 1 << n_log2 == n
+    if n_log2 < MIN_LOG2:
+        if a.is_cuda:
+            raise NotImplementedError(
+                f"NTT of 2^{n_log2} points on the card: the small-n kernels "
+                f"(n < 2^{MIN_LOG2}) are not ported yet"
+            )
+        if n <= 1:
+            return a.clone()
+        return _scaled(_ntt_stages(a, n_log2, inverse), G.inv(n) if inverse else 1)
+    dev = a.device
+    logs = _factor_logs(n_log2)
+    inv_n = G.inv(n) if inverse else 1
+    a = a.contiguous()
+    if len(logs) == 2:
+        l1, l2 = logs
+        m1, m2 = 1 << l1, 1 << l2
+        x = phase_axis(a.reshape(m1, m2), 0, inverse, tw=_twiddle_matrix(l1, l2, inverse, dev))
+        x = phase_axis(x, 1, inverse, scale=inv_n)
+        # natural order: y[k1 + m1*k2] = Y[k1, k2]
+        return x.T.reshape(n)
+    l1, l2, l3 = logs
+    m1, m2, m3 = 1 << l1, 1 << l2, 1 << l3
+    ta, tb = _t_outer(l1, l2, l3, inverse, dev)
+    x = phase_axis(a.reshape(m1, m2 * m3), 0, inverse, tw=tb, tw_period=m3)
+    x = phase_batched(x.reshape(m1, m2, m3), inverse, ta=ta, t=_t_mid(l2, l3, inverse, dev))
+    x = phase_last(x, inverse, scale=inv_n)
+    return x.reshape(n)
+
+
+def forward_ntt(a: torch.Tensor) -> torch.Tensor:
+    """Coefficients -> evaluations, natural order; int64 [n] field tensor."""
+    return _ntt(a, False)
+
+
+def inverse_ntt(a: torch.Tensor) -> torch.Tensor:
+    """Evaluations -> coefficients (scaled by n^-1)."""
+    return _ntt(a, True)
+
+
+def forward_ntt_u64(a: np.ndarray, device=None) -> np.ndarray:
+    return FT.unpack(forward_ntt(FT.pack(a, torch.device("cuda" if device is None else device))))
+
+
+def inverse_ntt_u64(a: np.ndarray, device=None) -> np.ndarray:
+    return FT.unpack(inverse_ntt(FT.pack(a, torch.device("cuda" if device is None else device))))
+
+
+# ------------------------------ DEEP coset LDE ------------------------------
+
+
+def _deep_lde_tables(base_log2: int, lde_log2: int, shift: int, device):
+    """Shift powers [n_base] and coset points [lde_n] on the device."""
+    shift_pows = _cached(
+        ("shiftpow", base_log2, shift), device, lambda: ntt_host.powers(shift, 1 << base_log2)
+    )
+    xs = _cached(
+        ("coset", lde_log2, shift), device,
+        lambda: G.mul(
+            np.uint64(shift),
+            ntt_host.powers(G.primitive_root_2exp(lde_log2), 1 << lde_log2),
+        ),
+    )
+    return shift_pows, xs
+
+
+def scale_pad(coeffs: torch.Tensor, shift_pows: torch.Tensor, lde_n: int) -> torch.Tensor:
+    out = torch.zeros(lde_n, dtype=torch.int64, device=coeffs.device)
+    out[: coeffs.shape[0]] = FT.mul(coeffs, shift_pows)
+    return out
+
+
+def deep_divide(y: torch.Tensor, z: int, xs: torch.Tensor) -> torch.Tensor:
+    denom = FT.sub(xs, FT.scalar(z, xs))
+    return FT.mul(y, FT.pow_p_minus_2(denom))
+
+
+def deep_coset_lde(base: torch.Tensor, blow_log2: int, shift: int, z: int) -> torch.Tensor:
+    """y[i] = LDE(base)(x_i) / (x_i - z) over the coset shift*<w> of size
+    n*2^blow: INTT -> shift-scale + zero-pad -> NTT -> divide. Takes and
+    returns device-resident field tensors (no host round trip)."""
+    n_base = int(base.shape[0])
+    base_log2 = n_base.bit_length() - 1
+    assert 1 << base_log2 == n_base
+    lde_log2 = base_log2 + blow_log2
+    coeffs = inverse_ntt(base)
+    shift_pows, xs = _deep_lde_tables(base_log2, lde_log2, shift, base.device)
+    y = forward_ntt(scale_pad(coeffs, shift_pows, 1 << lde_log2))
+    return deep_divide(y, z, xs)
+
+
+def deep_coset_lde_u64(base_evals: np.ndarray, blow_log2: int, shift: int, z: int, device=None):
+    device = torch.device("cuda" if device is None else device)
+    return FT.unpack(deep_coset_lde(FT.pack(base_evals, device), blow_log2, shift, z))

@@ -1,0 +1,261 @@
+"""STARK v1 prover (column commitments + DEEP coset LDE + FRI + openings).
+
+Transcript schedule is byte-identical to crates/sezkp-stark/src/v1/prover.rs:
+  manifest_root, n, tau -> col roots -> alphas -> masks -> ood point ->
+  fri layer roots (root0 then betas then folded roots) -> AIR row queries ->
+  FRI queries.
+
+Counterpart of sezkp_tpu/stark/v1/prover.py on its host-columns route: the
+trace columns, the composition polynomial and the ZK masks are built on the
+host with numpy; the heavy parts run on the device the caller names:
+
+- column commitments: leaf CVs hashed and kept resident (openings.ColumnEngine);
+- the DEEP coset LDE (INTT -> coset NTT -> divide) on device-resident field
+  tensors, never returned to the host (ops/ntt_torch.deep_coset_lde);
+- FRI layer hashing/folding (fri_device.DeviceFri);
+- openings answered from the resident commitments.
+
+`device=None` means the CUDA card and raises when there is none; the CPU is
+used only when the caller passes device="cpu". Which parts take the device
+route is decided by plain size thresholds (arguments below); small inputs
+take the host numpy route for those parts. The proof bytes do not depend on
+the route or the device.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ...core.types import BlockSummary
+from ...crypto.transcript import Blake3Transcript
+from ...ops import goldilocks as G
+from ...ops import goldilocks_torch as FT
+from ...ops import ntt as ntt_host
+from ...ops import ntt_torch
+from . import params
+from .air import Alphas, compose_all_rows
+from .columns import TraceColumns
+from .fri import fri_commit, fri_open_query, layer_tree
+from .fri_device import DeviceFri
+from .masking import (
+    DEFAULT_MASK_DEG,
+    DEFAULT_N_MASKS,
+    derive_mask_coeffs,
+    eval_masks_sum_at_points,
+)
+from .openings import DEVICE_HASH_MIN, ColumnEngine
+from .proof import FriQuery, PerTapeOpen, ProofV1, RowOpenings
+
+# Base-domain size (log2) from which the DEEP LDE runs on the device.
+LDE_MIN_LOG2 = 15
+# LDE-domain size (log2) from which FRI runs on the device.
+FRI_MIN_LOG2 = 14
+
+
+def resolve_device(device) -> torch.device:
+    """None -> the CUDA card (raises without one); anything else as given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "sezkp_tpu_torch runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _next_wrap(idx: int, n: int) -> int:
+    if n == 0:
+        return 0
+    return idx + 1 if idx + 1 < n else 0
+
+
+def _nudge_off_coset(z: int, shift: int, lde_k_log2: int) -> int:
+    p = int(G.P)
+    shift_inv = G.inv(shift)
+    def on_coset(zz: int) -> bool:
+        t = zz * shift_inv % p
+        for _ in range(lde_k_log2):
+            t = t * t % p
+        return t == 1
+    while on_coset(z):
+        z = (z + 1) % p
+    return z
+
+
+def _deep_lde_host(base_vals: np.ndarray, blow_log2: int, shift: int, z: int) -> np.ndarray:
+    n = base_vals.shape[0]
+    base_log2 = n.bit_length() - 1
+    coeffs = ntt_host.interpolate_from_evals(base_vals)
+    y = ntt_host.evaluate_on_coset_pow2(coeffs, base_log2 + blow_log2, shift)
+    lde_n = 1 << (base_log2 + blow_log2)
+    xs = G.mul(
+        np.uint64(shift), ntt_host.powers(G.primitive_root_2exp(base_log2 + blow_log2), lde_n)
+    )
+    denom = G.sub(xs, np.uint64(z))
+    return G.mul(y, G.inv_array(denom))
+
+
+class _Stages:
+    """Wall time per stage; synchronises the device at stage edges so a
+    stage is charged the device work it queued. Inactive without a dict."""
+
+    def __init__(self, out: Optional[dict], device: torch.device):
+        self.out = out
+        self.cuda = device.type == "cuda"
+        self.t = time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        if self.out is None:
+            return
+        if self.cuda:
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.out[name] = self.out.get(name, 0.0) + (now - self.t)
+        self.t = now
+
+
+def prove_v1(
+    blocks: Sequence[BlockSummary],
+    manifest_root: bytes,
+    device=None,
+    *,
+    device_hash_min: int = DEVICE_HASH_MIN,
+    lde_min_log2: int = LDE_MIN_LOG2,
+    fri_min_log2: int = FRI_MIN_LOG2,
+    timings: Optional[dict] = None,
+) -> ProofV1:
+    """Produce a v1 proof on `device` (None = the CUDA card).
+
+    The thresholds say from which sizes the commitments, the LDE and FRI take
+    the device route; `timings`, when a dict, receives wall seconds per stage."""
+    device = resolve_device(device)
+    n = sum(b.n_steps for b in blocks)
+    tau = blocks[0].tau if blocks else 0
+    assert n & (n - 1) == 0 and n > 0, "trace length must be a power of two"
+    stages = _Stages(timings, device)
+
+    tc = TraceColumns.build(blocks)
+    stages.mark("host_columns")
+
+    tr = Blake3Transcript(params.DS_V1_DOMAIN)
+    tr.absorb("manifest_root", manifest_root)
+    tr.absorb_u64("n", n)
+    tr.absorb_u64("tau", tau)
+
+    # ---- column commitments (batched) ----
+    engine = ColumnEngine(
+        tc, params.COL_CHUNK_LOG2, device=device, device_hash_min=device_hash_min
+    )
+    col_roots = engine.build_roots()
+    tr.absorb_u64(params.DS_N_COLS, len(col_roots))
+    for cr in col_roots:
+        tr.absorb(params.DS_COL_ROOT, cr.root)
+    stages.mark("commit")
+
+    # ---- alphas / masks / OOD point ----
+    alphas = Alphas.from_list(params.derive_alphas(tr))
+    mask_coeffs = derive_mask_coeffs(tr, DEFAULT_MASK_DEG, DEFAULT_N_MASKS)
+
+    blow_log2 = params.BLOWUP.bit_length() - 1
+    base_log2 = n.bit_length() - 1
+    lde_k_log2 = base_log2 + blow_log2
+    lde_n = 1 << lde_k_log2
+
+    shift = 3
+    z = params.derive_ood_point(tr)
+    z = _nudge_off_coset(z, shift, lde_k_log2)
+
+    # ---- base composition + ZK masks (host) ----
+    comp = compose_all_rows(tc, alphas)
+    w_base_pows = ntt_host.powers(G.primitive_root_2exp(base_log2), n)
+    base_vals = G.add(comp, eval_masks_sum_at_points(mask_coeffs, w_base_pows))
+    stages.mark("host_compose")
+
+    # ---- DEEP coset LDE ----
+    fri_eng = None
+    lde_vals = None
+    if base_log2 >= lde_min_log2:
+        # one upload of the base evaluations; the LDE stays on the device
+        lde_dev = ntt_torch.deep_coset_lde(FT.pack(base_vals, device), blow_log2, shift, z)
+        fri_eng = DeviceFri(lde_dev)
+    else:
+        lde_vals = _deep_lde_host(base_vals, blow_log2, shift, z)
+        if lde_k_log2 >= fri_min_log2:
+            fri_eng = DeviceFri(FT.pack(lde_vals, device))
+    stages.mark("lde")
+
+    # ---- FRI commit: bind root0, betas, fold + bind roots ----
+    if fri_eng is not None:
+        root0 = fri_eng.commit_layer0()
+        tr.absorb(params.DS_FRI_LAYER_ROOT, root0)
+        betas = params.derive_betas_for_fri(tr, lde_k_log2)
+        rest = fri_eng.commit_rest(betas)
+        for r in rest:
+            tr.absorb(params.DS_FRI_LAYER_ROOT, r)
+        roots = [root0] + rest
+        fri_final_value_le = fri_eng.final_value_le()
+    else:
+        roots, layers, betas = fri_commit(tr, lde_vals)
+        trees = [layer_tree(layer) for layer in layers]
+        fri_final_value_le = G.to_le_bytes(layers[-1][0]).tobytes()
+    stages.mark("fri_commit")
+
+    # ---- AIR query openings (batched: one device pass for all paths) --
+    rows = params.derive_queries(tr, n, params.NUM_QUERIES)
+    requests = []
+    for row in rows:
+        ip1 = _next_wrap(row, n)
+        for r in range(tau):
+            requests += [
+                (f"mv_{r}", row), (f"mv_{r}", ip1),
+                (f"wflag_{r}", row), (f"wsym_{r}", row),
+                (f"head_{r}", row), (f"head_{r}", ip1),
+                (f"winlen_{r}", row), (f"in_off_{r}", row), (f"out_off_{r}", row),
+            ]
+        requests += [("is_first", row), ("is_last", row), ("input_mv", row)]
+    opened = iter(engine.open_batch(requests))
+
+    queries: List[RowOpenings] = []
+    for row in rows:
+        per_tape = [
+            PerTapeOpen(
+                mv=next(opened), next_mv=next(opened), write_flag=next(opened),
+                write_sym=next(opened), head=next(opened), next_head=next(opened),
+                win_len=next(opened), in_off=next(opened), out_off=next(opened),
+            )
+            for _ in range(tau)
+        ]
+        queries.append(
+            RowOpenings(
+                row=row,
+                per_tape=per_tape,
+                is_first=next(opened),
+                is_last=next(opened),
+                input_mv=next(opened),
+            )
+        )
+    stages.mark("air_openings")
+
+    # ---- FRI queries ----
+    fri_rows = params.derive_queries(tr, lde_n, params.NUM_QUERIES)
+    if fri_eng is not None:
+        fri_queries: List[FriQuery] = fri_eng.open_queries(fri_rows)
+    else:
+        fri_queries = [fri_open_query(layers, trees, idx0) for idx0 in fri_rows]
+    stages.mark("fri_openings")
+
+    return ProofV1(
+        domain_n=lde_n,
+        tau=tau,
+        col_roots=col_roots,
+        queries=queries,
+        fri_roots=roots,
+        fri_queries=fri_queries,
+        fri_final_value_le=fri_final_value_le,
+        manifest_root=manifest_root,
+    )

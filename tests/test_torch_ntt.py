@@ -1,0 +1,138 @@
+"""Port NTT (plain versions of the phase kernels, on the CPU) vs the JAX
+package: the MXU kernels in interpret mode at 2^14, the host oracle at larger
+sizes, each phase against a direct per-axis DFT, and the DEEP coset LDE.
+
+Tolerance: none -- field elements, exact equality."""
+
+import numpy as np
+import pytest
+import torch
+
+from sezkp_tpu.ops import goldilocks as G
+from sezkp_tpu.ops import ntt as N
+from sezkp_tpu.ops import ntt_jax
+from sezkp_tpu.ops import ntt_mxu
+from sezkp_tpu_torch.ops import goldilocks_torch as FT
+from sezkp_tpu_torch.ops import ntt_torch as NT
+
+P = int(G.P)
+
+
+def _rand(n, seed):
+    a = np.random.default_rng(seed).integers(0, P, n, dtype=np.uint64)
+    a[0], a[1] = 0, P - 1
+    return a
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_matches_mxu_kernels_interpret_2_14(inverse):
+    a = _rand(1 << 14, 14)
+    if inverse:
+        want = ntt_mxu.inverse_ntt_u64(a)
+        got = NT.inverse_ntt_u64(a, "cpu")
+    else:
+        want = ntt_mxu.forward_ntt_u64(a)
+        got = NT.forward_ntt_u64(a, "cpu")
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("k", [14, 15, 18])  # two- and three-factor
+@pytest.mark.parametrize("inverse", [False, True])
+def test_matches_host_oracle(k, inverse):
+    a = _rand(1 << k, k)
+    assert NT._factor_logs(k) == ntt_mxu._factor_logs(k)
+    if inverse:
+        assert np.array_equal(NT.inverse_ntt_u64(a, "cpu"), N.inverse_ntt(a))
+    else:
+        assert np.array_equal(NT.forward_ntt_u64(a, "cpu"), N.forward_ntt(a))
+
+
+def test_small_sizes_plain_on_cpu_only():
+    a = _rand(1 << 8, 8)
+    assert np.array_equal(NT.forward_ntt_u64(a, "cpu"), N.forward_ntt(a))
+    assert np.array_equal(NT.inverse_ntt_u64(a, "cpu"), N.inverse_ntt(a))
+    assert NT.MIN_LOG2 == ntt_mxu.MIN_LOG2
+
+
+def _dft_rows(x, inverse):
+    """Direct DFT of every row by the host oracle (n^-1 of the inverse undone)."""
+    m = x.shape[-1]
+    flat = x.reshape(-1, m)
+    out = np.empty_like(flat)
+    for i, row in enumerate(flat):
+        out[i] = G.mul(N.inverse_ntt(row), np.uint64(m)) if inverse else N.forward_ntt(row)
+    return out.reshape(x.shape)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_phase_axis_plain_vs_direct_dft(inverse):
+    rng = np.random.default_rng(21)
+    m, other = 16, 24
+    x = rng.integers(0, P, (m, other), dtype=np.uint64)
+    tw = rng.integers(0, P, (m, other), dtype=np.uint64)
+    twp = rng.integers(0, P, (m, 8), dtype=np.uint64)
+    scale = 12345678901234567
+    want = _dft_rows(x.T.copy(), inverse).T
+    got = NT.phase_axis(FT.pack(x), 0, inverse)
+    assert np.array_equal(FT.unpack(got), want)
+    got = NT.phase_axis(FT.pack(x), 0, inverse, tw=FT.pack(tw), scale=scale)
+    assert np.array_equal(FT.unpack(got), G.mul(G.mul(want, tw), np.uint64(scale)))
+    got = NT.phase_axis(FT.pack(x), 0, inverse, tw=FT.pack(twp), tw_period=8)
+    assert np.array_equal(FT.unpack(got), G.mul(want, np.tile(twp, (1, 3))))
+    # axis 1: [other, m]
+    x1 = np.ascontiguousarray(x.T)
+    got = NT.phase_axis(FT.pack(x1), 1, inverse, scale=scale)
+    assert np.array_equal(FT.unpack(got), G.mul(_dft_rows(x1, inverse), np.uint64(scale)))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_phase_batched_plain_vs_direct_dft(inverse):
+    rng = np.random.default_rng(22)
+    m1, mc, cols = 4, 8, 6
+    x = rng.integers(0, P, (m1, mc, cols), dtype=np.uint64)
+    ta = rng.integers(0, P, (m1, mc), dtype=np.uint64)
+    t = rng.integers(0, P, (mc, cols), dtype=np.uint64)
+    pre = G.mul(x, ta[:, :, None])
+    want = _dft_rows(np.ascontiguousarray(pre.transpose(0, 2, 1)), inverse).transpose(0, 2, 1)
+    want = G.mul(want, t[None])
+    got = NT.phase_batched(FT.pack(x), inverse, ta=FT.pack(ta), t=FT.pack(t))
+    assert np.array_equal(FT.unpack(got), want)
+    got = NT.phase_batched(FT.pack(x), inverse)
+    want = _dft_rows(np.ascontiguousarray(x.transpose(0, 2, 1)), inverse).transpose(0, 2, 1)
+    assert np.array_equal(FT.unpack(got), want)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_phase_last_plain_vs_direct_dft(inverse):
+    rng = np.random.default_rng(23)
+    m1, m2, mc = 4, 2, 8
+    x = rng.integers(0, P, (m1, m2, mc), dtype=np.uint64)
+    scale = G.inv(64)
+    want = G.mul(_dft_rows(x, inverse), np.uint64(scale)).transpose(2, 1, 0)
+    got = NT.phase_last(FT.pack(x), inverse, scale=scale)
+    assert tuple(got.shape) == (mc, m2, m1)
+    assert np.array_equal(FT.unpack(got), want)
+
+
+def test_phase_wrappers_count_no_launch_on_cpu():
+    x = FT.pack(_rand(64, 3).reshape(8, 8))
+    before = (NT.phase_axis.launches, NT.phase_batched.launches, NT.phase_last.launches)
+    NT.phase_axis(x, 0, False)
+    NT.phase_batched(x.reshape(2, 4, 8), False)
+    NT.phase_last(x.reshape(2, 4, 8), False)
+    assert (NT.phase_axis.launches, NT.phase_batched.launches, NT.phase_last.launches) == before
+
+
+def test_deep_coset_lde_matches_jax():
+    base = _rand(1 << 11, 11)
+    z = 0x1234567890ABCDEF % P
+    want = ntt_jax.deep_coset_lde_u64(base, 3, 3, z)
+    got = NT.deep_coset_lde_u64(base, 3, 3, z, "cpu")
+    assert got.shape == (1 << 14,)
+    assert np.array_equal(got, want)
+
+
+def test_tables_cached_per_device():
+    a = NT._wp(7, False, "cpu")
+    assert NT._wp(7, False, torch.device("cpu")) is a
+    assert NT._wp(7, True, "cpu") is not a
