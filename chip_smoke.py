@@ -12,14 +12,25 @@ Phases (any failure ends the run with a non-zero exit code):
   kernels       every hand-written kernel against its plain PyTorch version
                 on the card, exact equality (tolerance 0: integer code), at
                 reduced and at main-path shapes; kernel, plain and bound times.
-  prove         T = 2^20, b = 512, tau = 8: generate_trace -> partition_trace
-                -> commit_blocks -> StarkV1.prove (on the card) ->
-                StarkV1.verify; a tampered proof is rejected; a second prove
-                is byte-identical; every kernel's launch count over the prove
-                is > 0; wall time per stage and peak device memory.
-  parity-small  T = 2^15: the proof made on the card equals, byte for byte,
-                the proof made with device="cpu" (kernels against the plain
-                versions through the whole pipeline).
+                K5/K6 at every n = 2^1 .. 2^13 both ways, and the whole
+                transforms there against the host oracle.
+  prove         T = 2^20, b = 512, tau = 8 on the device-resident route:
+                generate_trace -> partition_trace -> commit_blocks ->
+                StarkV1.prove (on the card) -> StarkV1.verify; a tampered
+                proof is rejected; a second prove is byte-identical; the
+                launch counts of K1-K4 over the prove are > 0; wall time per
+                stage and peak device memory. Then one prove on the
+                host-columns route, whose bytes must be the same.
+  parity-small  device-resident route: the proof made on the card equals,
+                byte for byte, the proof made with device="cpu" at T = 2^13
+                (where K5 and K6 must have launched once each) and T = 2^15;
+                at T = 2^16 the proves with zero memory budgets (roots-scan
+                commit, recomputed and range-derived openings, slab-wise
+                composition) equal the resident prove.
+  prove-large   only when asked for (--phases env,prove-large): T = 2^22
+                (LDE 2^25, the largest size the port proves so far),
+                device-resident route: two proves (byte-identical) + verify,
+                stage seconds and peak device memory.
   sass          only when asked for (--phases env,sass): disassembles the
                 built kernels and a one-primitive probe and prints the
                 instruction counts, by issue pipe, that the operation bounds
@@ -80,8 +91,9 @@ def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> int:
     return int(np.where(g > w, g - w, w - g).max())
 
 ALL_PHASES = ("env", "kernels", "prove", "parity-small")
-# run only when asked for: the disassembly that the operation counts are read from
-EXTRA_PHASES = ("sass",)
+# run only when asked for: the largest prove, and the disassembly that the
+# operation counts are read from
+EXTRA_PHASES = ("prove-large", "sass")
 
 
 def log(msg: str) -> None:
@@ -105,6 +117,19 @@ def time_cuda(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_cuda_graph(fn, reps: int) -> float:
+    """Milliseconds per call on the device alone: `reps` calls captured into
+    one CUDA graph and replayed, so the host's cost of making each launch
+    (which exceeds the device time of a microsecond-sized kernel) drops out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_cuda(graph.replay, 5) / reps
 
 
 def nvidia_smi_line() -> str:
@@ -299,6 +324,60 @@ def phase_kernels(state) -> None:
     for name, e in errs.items():
         kern[name]["max_abs_err"] = e
 
+    # ---- K5/K6: the two phases of every n = 2^1 .. 2^13, both ways
+    errs.update(ntt_small_cols=0, ntt_small_rows=0)
+    for n_log2 in range(1, NT.MIN_LOG2):
+        for inverse in (False, True):
+            n = 1 << n_log2
+            l1 = min(10, n_log2 // 2)
+            l2 = n_log2 - l1
+            inv_n = G.inv(n) if inverse else 1
+            a = _field_rand((n,), gen, dev)
+            what = f"n=2^{n_log2} inverse={inverse}"
+            tw = NT._twiddle_matrix(l1, l2, inverse, dev)
+            x0 = a.reshape(1 << l1, 1 << l2)
+            x1 = NT.small_cols(x0, inverse, tw)
+            hold("ntt_small_cols", x1, NT.small_cols_plain(x0, inverse, tw), what)
+            x2 = NT.small_rows(x1, inverse, scale=inv_n)
+            hold("ntt_small_rows", x2, NT.small_rows_plain(x1, inverse, scale=inv_n), what)
+            whole = NT.inverse_ntt(a) if inverse else NT.forward_ntt(a)
+            ref = ntt_host.inverse_ntt(_to_u64(a)) if inverse else ntt_host.forward_ntt(_to_u64(a))
+            if not (np.array_equal(_to_u64(whole), ref) and np.array_equal(_to_u64(x2).reshape(n), ref)):
+                fail(f"small-n NTT != host oracle at {what}")
+            if n_log2 == NT.MIN_LOG2 - 1 and inverse:
+                # times at the main-path shape: the base inverse NTT of a T = 2^13 prove
+                for name, fn, plain, shp, mlog, tab in (
+                    ("ntt_small_cols",
+                     lambda: NT.small_cols(x0, inverse, tw),
+                     lambda: NT.small_cols_plain(x0, inverse, tw),
+                     f"int64 [{1 << l1}, {1 << l2}] columns, twiddle [{1 << l1}, {1 << l2}]",
+                     l1, n + (1 << l1) // 2),
+                    ("ntt_small_rows",
+                     lambda: NT.small_rows(x1, inverse, scale=inv_n),
+                     lambda: NT.small_rows_plain(x1, inverse, scale=inv_n),
+                     f"int64 [{1 << l1}, {1 << l2}] rows -> [{1 << l2}, {1 << l1}], scale n^-1",
+                     l2, (1 << l2) // 2),
+                ):
+                    ms = time_cuda(fn, 200)
+                    graph_ms = time_cuda_graph(fn, 200)
+                    plain_ms = time_cuda(plain, 5)
+                    bnd, by = bound(n, mlog, 1, tab)
+                    # ms: launches made one by one from Python, as the prover
+                    # makes them; graph_ms: the same launches replayed from a
+                    # CUDA graph, the device's share of that time
+                    kern[name] = dict(
+                        name=name, route="cuda", source="sezkp_tpu_torch/ops/csrc/ntt_small.cu",
+                        shape=shp, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, bound_ms=bnd,
+                        bound_by=by, library_ms=None,
+                    )
+    kern["ntt_small_cols"]["replaces"] = "sezkp_tpu/ops/ntt_pallas.py:162"
+    kern["ntt_small_rows"]["replaces"] = "sezkp_tpu/ops/ntt_pallas.py:177"
+    for name in ("ntt_small_cols", "ntt_small_rows"):
+        kern[name]["max_abs_err"] = errs[name]
+    if NT.forward_ntt(torch.zeros(1, dtype=torch.int64, device=dev)).shape != (1,):
+        fail("forward_ntt of one point")
+    log("[kernels] K5/K6 == plain, and forward/inverse NTT == host oracle, at every n = 2^1 .. 2^13")
+
     # whole forward/inverse round trip at 2^23
     a = _field_rand((1 << 23,), gen, dev)
     back = NT.inverse_ntt(NT.forward_ntt(a))
@@ -315,13 +394,17 @@ def phase_kernels(state) -> None:
             return
         fail(f"{what}: expected {exc.__name__}")
 
-    refuses(NotImplementedError, "forward_ntt of n = 2^10 on the card (below the kernels' sizes)",
-            lambda: NT.forward_ntt(a[: 1 << 10].clone()))
+    small = a[: 1 << 10].clone()
+    if not np.array_equal(_to_u64(NT.forward_ntt(small)), ntt_host.forward_ntt(_to_u64(small))):
+        fail("forward_ntt of n = 2^10 on the card != host oracle")
     refuses(ValueError, "compress of int64 words",
             lambda: BT.compress(torch.zeros((16, 8), dtype=torch.int64, device=dev), 64, BT.LEAF_FLAGS))
     refuses(ValueError, "phase_axis of a non-contiguous view",
             lambda: NT.phase_axis(torch.zeros((8, 8), dtype=torch.int64, device=dev).T, 0, False))
-    log("[kernels] the wrappers refuse small n, wrong dtype and non-contiguous input")
+    refuses(ValueError, "small_cols of a 1-D tensor",
+            lambda: NT.small_cols(small, False, small))
+    log("[kernels] n = 2^10 on the card == host oracle; the wrappers refuse a wrong dtype, "
+        "a wrong rank and non-contiguous input")
 
     # the plain tensor steps of the DEEP glue and the FRI fold, which no
     # kernel covers (they are outside any kernel in the JAX package too)
@@ -433,6 +516,8 @@ def _wrappers():
         "ntt_phase_axis": NT.phase_axis,
         "ntt_phase_batched": NT.phase_batched,
         "ntt_phase_last": NT.phase_last,
+        "ntt_small_cols": NT.small_cols,
+        "ntt_small_rows": NT.small_rows,
     }
 
 
@@ -457,12 +542,13 @@ def _tamper(art):
     )
 
 
-def phase_prove(state) -> None:
-    from sezkp_tpu_torch.stark.backends import StarkV1
+HOST_COLUMNS = dict(device_cols_min=1 << 62)  # the other route: columns and composition in numpy
 
-    t_log2, b, tau = 20, 512, 8
-    blocks, man, t_in = _make_input(1 << t_log2, b, tau)
-    log(f"[prove] T = 2^{t_log2}, b = {b}, tau = {tau}: {len(blocks)} blocks, input made in {t_in:.1f} s")
+
+def _counted_prove(blocks, root, **options):
+    """One prove with every kernel's launch count set to 0 just before and
+    read just after: (artifact, wall s, stage s, launches, peak bytes)."""
+    from sezkp_tpu_torch.stark.backends import StarkV1
 
     wrappers = _wrappers()
     torch.cuda.synchronize()
@@ -471,17 +557,36 @@ def phase_prove(state) -> None:
         w.launches = 0
     timings = {}
     t0 = time.time()
-    art = StarkV1.prove(blocks, man.root, timings=timings)
+    art = StarkV1.prove(blocks, root, timings=timings, **options)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
-    peak = torch.cuda.max_memory_allocated()
+    return art, wall, timings, launches, torch.cuda.max_memory_allocated()
+
+
+def _stages(timings) -> str:
+    return json.dumps({k: round(v, 3) for k, v in timings.items()})
+
+
+def _sha(art) -> str:
+    return hashlib.sha256(art.proof_bytes).hexdigest()
+
+
+def phase_prove(state) -> None:
+    from sezkp_tpu_torch.stark.backends import StarkV1
+
+    t_log2, b, tau = 20, 512, 8
+    blocks, man, t_in = _make_input(1 << t_log2, b, tau)
+    log(f"[prove] T = 2^{t_log2}, b = {b}, tau = {tau}: {len(blocks)} blocks, input made in {t_in:.1f} s")
+
+    art, wall, timings, launches, peak = _counted_prove(blocks, man.root)
     state["launches"] = launches
-    log(f"[prove] first prove wall {wall:.2f} s; stages (s): "
-        + json.dumps({k: round(v, 3) for k, v in timings.items()}))
+    log(f"[prove] device-resident route, first prove wall {wall:.2f} s; stages (s): {_stages(timings)}")
     log(f"[prove] peak device memory {peak} bytes; proof {len(art.proof_bytes)} bytes; launches {json.dumps(launches)}")
-    for k, v in launches.items():
-        if v <= 0:
+    if "device_compose" not in timings:
+        fail("the prove did not take the device-resident route")
+    for k in ("blake3_compress", "ntt_phase_axis", "ntt_phase_batched", "ntt_phase_last"):
+        if launches[k] <= 0:
             fail(f"kernel {k} was never launched by the prove")
 
     t0 = time.time()
@@ -495,31 +600,76 @@ def phase_prove(state) -> None:
     else:
         fail("tampered proof was accepted")
 
-    timings2 = {}
-    t0 = time.time()
-    art2 = StarkV1.prove(blocks, man.root, timings=timings2)
-    torch.cuda.synchronize()
-    wall2 = time.time() - t0
-    h1 = hashlib.sha256(art.proof_bytes).hexdigest()
-    h2 = hashlib.sha256(art2.proof_bytes).hexdigest()
-    log(f"[prove] second prove (twiddle tables cached) wall {wall2:.2f} s; stages (s): "
-        + json.dumps({k: round(v, 3) for k, v in timings2.items()}))
-    log(f"[prove] sha256 {h1} / {h2}")
-    if h1 != h2:
+    art2, wall2, timings2, _, peak2 = _counted_prove(blocks, man.root)
+    log(f"[prove] second prove (twiddle tables cached) wall {wall2:.2f} s; stages (s): {_stages(timings2)}")
+    log(f"[prove] second prove peak device memory {peak2} bytes")
+    log(f"[prove] sha256 {_sha(art)} / {_sha(art2)}")
+    if art.proof_bytes != art2.proof_bytes:
         fail("two proves of the same input differ")
+
+    del art2
+    art3, wall3, timings3, launches3, peak3 = _counted_prove(blocks, man.root, **HOST_COLUMNS)
+    log(f"[prove] host-columns route, one prove wall {wall3:.2f} s; stages (s): {_stages(timings3)}")
+    log(f"[prove] host-columns route peak device memory {peak3} bytes; launches {json.dumps(launches3)}; "
+        f"sha256 {_sha(art3)}")
+    if "host_compose" not in timings3:
+        fail("device_cols_min above n did not select the host-columns route")
+    if art3.proof_bytes != art.proof_bytes:
+        fail("the host-columns route and the device-resident route give different proofs")
 
 
 def phase_parity_small(state) -> None:
     from sezkp_tpu_torch.stark.backends import StarkV1
 
-    blocks, man, _ = _make_input(1 << 15, 512, 8)
-    on_card = StarkV1.prove(blocks, man.root)
-    on_cpu = StarkV1.prove(blocks, man.root, device="cpu")
-    if on_card.proof_bytes != on_cpu.proof_bytes:
-        fail("T = 2^15: the proof made on the card differs from the proof made on the CPU")
-    StarkV1.verify(on_card, blocks, man.root)
-    log(f"[parity-small] T = 2^15: card and CPU proofs byte-identical "
-        f"(sha256 {hashlib.sha256(on_card.proof_bytes).hexdigest()})")
+    for t_log2 in (13, 15):
+        blocks, man, _ = _make_input(1 << t_log2, 512, 8)
+        on_card, _, timings, launches, _ = _counted_prove(blocks, man.root)
+        if "device_compose" not in timings:
+            fail(f"T = 2^{t_log2}: the prove did not take the device-resident route")
+        on_cpu = StarkV1.prove(blocks, man.root, device="cpu")
+        if on_card.proof_bytes != on_cpu.proof_bytes:
+            fail(f"T = 2^{t_log2}: the proof made on the card differs from the proof made on the CPU")
+        StarkV1.verify(on_card, blocks, man.root)
+        log(f"[parity-small] T = 2^{t_log2}: card and CPU proofs byte-identical "
+            f"(sha256 {_sha(on_card)}); launches {json.dumps(launches)}")
+        if t_log2 == 13:
+            state["launches_small"] = launches
+            if launches["ntt_small_cols"] != 1 or launches["ntt_small_rows"] != 1:
+                fail("T = 2^13: K5 and K6 must launch once each (the base inverse NTT)")
+
+    blocks, man, _ = _make_input(1 << 16, 512, 8)
+    resident, _, _, _, peak = _counted_prove(blocks, man.root)
+    for what, options in (
+        ("roots-scan commit, range-derived openings, slab-wise composition",
+         dict(cv_budget_bytes=0, release_planes_bytes=0, compose_scan_min_log2=0)),
+        ("roots-scan commit, openings recomputed from the resident matrix",
+         dict(cv_budget_bytes=0)),
+    ):
+        lean, _, _, _, peak_lean = _counted_prove(blocks, man.root, **options)
+        if lean.proof_bytes != resident.proof_bytes:
+            fail(f"T = 2^16: the prove with {what} differs from the resident prove")
+        log(f"[parity-small] T = 2^16: {what}: byte-identical to the resident prove "
+            f"(peak device memory {peak_lean} against {peak} bytes)")
+
+
+def phase_prove_large(state) -> None:
+    from sezkp_tpu_torch.stark.backends import StarkV1
+
+    blocks, man, t_in = _make_input(1 << 22, 512, 8)
+    log(f"[prove-large] T = 2^22, b = 512, tau = 8: {len(blocks)} blocks, input made in {t_in:.1f} s")
+    art, wall, timings, launches, peak = _counted_prove(blocks, man.root)
+    log(f"[prove-large] device-resident route, first prove wall {wall:.2f} s; stages (s): {_stages(timings)}")
+    log(f"[prove-large] peak device memory {peak} bytes; proof {len(art.proof_bytes)} bytes; "
+        f"launches {json.dumps(launches)}")
+    art2, wall2, timings2, _, peak2 = _counted_prove(blocks, man.root)
+    log(f"[prove-large] second prove (tables cached) wall {wall2:.2f} s; stages (s): {_stages(timings2)}; "
+        f"peak device memory {peak2} bytes")
+    if art2.proof_bytes != art.proof_bytes:
+        fail("two proves of the same input differ")
+    del art2
+    t0 = time.time()
+    StarkV1.verify(art, blocks, man.root)
+    log(f"[prove-large] verify OK in {time.time() - t0:.2f} s")
 
 
 def main() -> None:
@@ -540,7 +690,8 @@ def main() -> None:
     state = {}
     t_start = time.time()
     run = {"env": phase_env, "kernels": phase_kernels, "prove": phase_prove,
-           "parity-small": phase_parity_small, "sass": phase_sass}
+           "parity-small": phase_parity_small, "prove-large": phase_prove_large,
+           "sass": phase_sass}
     if "env" not in phases:
         state["smi"] = nvidia_smi_line()
     for p in phases:
@@ -551,8 +702,11 @@ def main() -> None:
     kernels = []
     for name, k in state.get("kernels", {}).items():
         k = dict(k)
-        # the count over the prove phase; null when that phase was not asked for
-        k["launches"] = state["launches"][name] if "launches" in state else None
+        # K1-K4: the count over the T = 2^20 prove; K5/K6, which only a base
+        # domain below 2^14 reaches: the count over the T = 2^13 prove. Null
+        # when that phase was not asked for.
+        counted = "launches_small" if name.startswith("ntt_small") else "launches"
+        k["launches"] = state[counted][name] if counted in state else None
         kernels.append(k)
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -24,8 +24,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.abspath(
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "_build")
 )
-_SOURCES = ("blake3_compress.cu", "ntt_phases.cu")
-_HEADERS = ("goldilocks.cuh",)
+_SOURCES = ("blake3_compress.cu", "ntt_phases.cu", "ntt_small.cu")
+_HEADERS = ("goldilocks.cuh", "ntt_smem.cuh")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -115,9 +115,12 @@ def lib() -> ctypes.CDLL:
     L.sezkp_ntt_phase_axis.argtypes = [vp, vp, i, ll, i, vp, vp, ll, ull, vp]
     L.sezkp_ntt_phase_batched.argtypes = [vp, vp, i, i, i, vp, vp, vp, vp]
     L.sezkp_ntt_phase_last.argtypes = [vp, vp, i, i, i, vp, ull, vp]
+    L.sezkp_ntt_small_cols.argtypes = [vp, vp, i, i, vp, vp, vp]
+    L.sezkp_ntt_small_rows.argtypes = [vp, vp, i, i, vp, ull, vp]
     for fn in (
         L.sezkp_blake3_compress, L.sezkp_ntt_phase_axis,
         L.sezkp_ntt_phase_batched, L.sezkp_ntt_phase_last,
+        L.sezkp_ntt_small_cols, L.sezkp_ntt_small_rows,
     ):
         fn.restype = ctypes.c_int
     _lib = L

@@ -2,8 +2,9 @@
 
 Counterpart of sezkp_tpu/ops/blake3_pallas.py (the compression kernel) and of
 the part of sezkp_tpu/ops/blake3_jax.py that the STARK v1 route runs: labeled
-leaf hashing, Merkle parent levels, whole-column commitments and in-chunk
-opening paths.
+leaf hashing, Merkle parent levels, whole-column commitments (with resident
+leaf CVs, or roots only) and in-chunk opening paths (from resident CVs, or
+recomputed from column values).
 
 Every message here is at most 64 bytes: one BLAKE3 compression with flags
 CHUNK_START|CHUNK_END|ROOT and counter 0. Merkle parents are hashed that way
@@ -202,25 +203,64 @@ def cv_planes_to_bytes(cv) -> np.ndarray:
 # ---------------- batched column commitment (resident leaf CVs) -------------
 
 
-def columns_commit_device(values: torch.Tensor, prefixes: Sequence[bytes], chunk_log2: int):
-    """Hash and chunk-commit many columns on the device.
+def _chunk_roots(cv: torch.Tensor, chunk_log2: int) -> torch.Tensor:
+    """Leaf CVs [8, m] -> the roots [8, m >> chunk_log2] of their chunk trees."""
+    for _ in range(chunk_log2):
+        cv = parent_level_planes(cv)
+    return cv
 
-    values: int64 [C, n] field tensor, n a multiple of 2^chunk_log2.
-    prefixes: C byte strings (any lengths).
+
+def _select(values: torch.Tensor, prefixes: Sequence[bytes], idx):
+    rows = list(range(values.shape[0])) if idx is None else [int(i) for i in idx]
+    assert len(prefixes) == len(rows)
+    return rows
+
+
+def columns_commit_from_planes(values: torch.Tensor, prefixes: Sequence[bytes],
+                               chunk_log2: int, idx=None):
+    """Hash and chunk-commit columns of a device-resident matrix in place
+    (no copy of the values is made or uploaded).
+
+    values: int64 [C_all, n] field tensor, n a multiple of 2^chunk_log2.
+    idx: optional row selection (ints [C]); without it every row, in order.
+    prefixes: one byte string per selected row (any lengths).
     Returns (cvs int32 [C, 8, n] leaf CV planes, resident on the device;
-    roots int32 [C, 8, n_chunks] chunk-root planes, also on the device)."""
-    c, n = values.shape
-    assert len(prefixes) == c
+    roots int32 [C, 8, n_chunks] chunk-root planes, also on the device).
+    Messages are assembled one column at a time, so the [C, 16, n] message
+    tensor is never whole."""
+    rows = _select(values, prefixes, idx)
+    n = values.shape[1]
     assert n % (1 << chunk_log2) == 0
-    n_chunks = n >> chunk_log2
-    cvs = torch.empty((c, 8, n), dtype=torch.int32, device=values.device)
-    roots = torch.empty((c, 8, n_chunks), dtype=torch.int32, device=values.device)
-    for ci in range(c):
-        cur = hash_leaves_u64_planes(values[ci], prefixes[ci], out=cvs[ci])
-        for _ in range(chunk_log2):
-            cur = parent_level_planes(cur)
-        roots[ci] = cur
+    cvs = torch.empty((len(rows), 8, n), dtype=torch.int32, device=values.device)
+    roots = torch.empty((len(rows), 8, n >> chunk_log2), dtype=torch.int32, device=values.device)
+    for ci, row in enumerate(rows):
+        cv = hash_leaves_u64_planes(values[row], prefixes[ci], out=cvs[ci])
+        roots[ci] = _chunk_roots(cv, chunk_log2)
     return cvs, roots
+
+
+def columns_commit_device(values: torch.Tensor, prefixes: Sequence[bytes], chunk_log2: int):
+    """columns_commit_from_planes over every row of `values` (int64 [C, n])."""
+    return columns_commit_from_planes(values, prefixes, chunk_log2)
+
+
+def columns_commit_roots_scan(values: torch.Tensor, prefixes: Sequence[bytes],
+                              chunk_log2: int, idx=None, seg_log2: int = 16):
+    """Memory-bounded chunk roots: the same roots as columns_commit_from_planes
+    but no leaf-CV buffer; each column is hashed 2^seg_log2 rows at a time and
+    only the chunk roots are kept. Openings then recompute the queried chunks
+    (chunk_paths_from_planes / chunk_paths_from_ranges).
+    Returns roots int32 [C, 8, n_chunks] on the device."""
+    rows = _select(values, prefixes, idx)
+    n = values.shape[1]
+    seg = 1 << min(seg_log2, n.bit_length() - 1)
+    assert n % seg == 0 and seg >= (1 << chunk_log2)
+    roots = torch.empty((len(rows), 8, n >> chunk_log2), dtype=torch.int32, device=values.device)
+    for ci, row in enumerate(rows):
+        for s in range(0, n, seg):
+            cv = hash_leaves_u64_planes(values[row, s : s + seg], prefixes[ci])
+            roots[ci, :, s >> chunk_log2 : (s + seg) >> chunk_log2] = _chunk_roots(cv, chunk_log2)
+    return roots
 
 
 def croots_to_host(roots: torch.Tensor) -> np.ndarray:
@@ -232,6 +272,34 @@ def croots_to_host(roots: torch.Tensor) -> np.ndarray:
 
 
 # -------------- device path extraction (openings without leaf pulls) --------
+
+
+def _as_index(x, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)
+
+
+def _paths_from_leaf_cvs(cur: torch.Tensor, cur_idx: torch.Tensor, chunk_log2: int):
+    """cur: int32 [8, K * chunk] leaf CVs of K chunks side by side; cur_idx:
+    int64 [K] index of the opened leaf inside each chunk. Each chunk's tree is
+    built level by level and the sibling node gathered on the way.
+    Returns (paths uint8 [K, chunk_log2, 32], roots uint8 [K, 32])."""
+    k = cur_idx.shape[0]
+    base = torch.arange(k, device=cur.device)
+    paths: List[torch.Tensor] = []
+    m = 1 << chunk_log2
+    while m > 1:
+        sib = base * m + (cur_idx ^ 1)
+        paths.append(cur[:, sib])  # [8, K]
+        cur = parent_level_planes(cur)
+        cur_idx = cur_idx >> 1
+        m >>= 1
+    if paths:
+        p = torch.stack(paths, dim=0).cpu().numpy()  # [L, 8, K]
+        rows = np.ascontiguousarray(p.transpose(2, 0, 1)).astype("<u4", copy=False)
+        paths8 = rows.view(np.uint8).reshape(k, chunk_log2, 32)
+    else:
+        paths8 = np.zeros((k, 0, 32), np.uint8)
+    return paths8, cv_planes_to_bytes(cur)
 
 
 def chunk_paths_device(cvs: torch.Tensor, cols, chunk_starts, idx_in_chunk, chunk_log2: int):
@@ -247,27 +315,66 @@ def chunk_paths_device(cvs: torch.Tensor, cols, chunk_starts, idx_in_chunk, chun
     if k == 0:
         return np.zeros((0, chunk_log2, 32), np.uint8), np.zeros((0, 32), np.uint8)
     dev = cvs.device
-    c, _, n = cvs.shape
-    col_t = torch.as_tensor(np.asarray(cols, dtype=np.int64), device=dev)
-    start_t = torch.as_tensor(np.asarray(chunk_starts, dtype=np.int64), device=dev)
-    cur_idx = torch.as_tensor(np.asarray(idx_in_chunk, dtype=np.int64), device=dev)
+    n = cvs.shape[2]
     # gather the K chunks' leaves: [8, K * chunk]
-    offs = (col_t * (8 * n) + start_t)[:, None] + torch.arange(chunk, device=dev)[None, :]
+    offs = (_as_index(cols, dev) * (8 * n) + _as_index(chunk_starts, dev))[:, None] \
+        + torch.arange(chunk, device=dev)[None, :]
     flat = cvs.reshape(-1)
     cur = torch.stack([flat[(offs + w * n).reshape(-1)] for w in range(8)], dim=0)
-    base = torch.arange(k, device=dev)
-    paths: List[torch.Tensor] = []
-    m = chunk
-    while m > 1:
-        sib = base * m + (cur_idx ^ 1)
-        paths.append(cur[:, sib])  # [8, K]
-        cur = parent_level_planes(cur)
-        cur_idx = cur_idx >> 1
-        m >>= 1
-    if paths:
-        p = torch.stack(paths, dim=0).cpu().numpy()  # [L, 8, K]
-        rows = np.ascontiguousarray(p.transpose(2, 0, 1)).astype("<u4", copy=False)
-        paths8 = rows.view(np.uint8).reshape(k, chunk_log2, 32)
-    else:
-        paths8 = np.zeros((k, 0, 32), np.uint8)
-    return paths8, cv_planes_to_bytes(cur)
+    return _paths_from_leaf_cvs(cur, _as_index(idx_in_chunk, dev), chunk_log2)
+
+
+def _chunk_paths_from_values(vals: torch.Tensor, idx_in_chunk, prefixes: Sequence[bytes],
+                             chunk_log2: int):
+    """vals: int64 [K, chunk], request i's chunk of column values, hashed
+    with prefixes[i]. Returns (paths, roots, values uint64 [K])."""
+    k, chunk = vals.shape
+    assert chunk == 1 << chunk_log2 and len(prefixes) == k
+    dev = vals.device
+    groups: dict = {}
+    for i, p in enumerate(prefixes):
+        groups.setdefault(p, []).append(i)
+    cur = torch.empty((8, k, chunk), dtype=torch.int32, device=dev)
+    for prefix, ids in groups.items():
+        ids_t = _as_index(ids, dev)
+        cv = hash_leaves_u64_planes(vals[ids_t].reshape(-1), prefix)
+        cur[:, ids_t] = cv.reshape(8, len(ids), chunk)
+    idx_t = _as_index(idx_in_chunk, dev)
+    opened = vals[torch.arange(k, device=dev), idx_t]
+    paths8, roots8 = _paths_from_leaf_cvs(cur.reshape(8, k * chunk), idx_t, chunk_log2)
+    return paths8, roots8, opened.cpu().numpy().view(np.uint64)
+
+
+def chunk_paths_from_planes(values: torch.Tensor, col_indices, chunk_starts, idx_in_chunk,
+                            prefixes: Sequence[bytes], chunk_log2: int):
+    """Openings against scan-committed columns: recompute each queried
+    chunk's tree on the device from the resident column matrix (reference
+    semantics: recompute-on-open, openings.rs:278-498 -- same paths, batched).
+
+    values: int64 [C, n]; request i reads rows chunk_starts[i] .. + chunk of
+    column col_indices[i] and is hashed with prefixes[i] (any lengths).
+    Returns (paths uint8 [K, chunk_log2, 32], roots uint8 [K, 32], the opened
+    values uint64 [K])."""
+    k = len(chunk_starts)
+    if k == 0:
+        return (np.zeros((0, chunk_log2, 32), np.uint8), np.zeros((0, 32), np.uint8),
+                np.zeros(0, np.uint64))
+    dev = values.device
+    n = values.shape[1]
+    offs = (_as_index(col_indices, dev) * n + _as_index(chunk_starts, dev))[:, None] \
+        + torch.arange(1 << chunk_log2, device=dev)[None, :]
+    return _chunk_paths_from_values(values.reshape(-1)[offs], idx_in_chunk, prefixes, chunk_log2)
+
+
+def chunk_paths_from_ranges(ranges: torch.Tensor, sel_s, col_indices, idx_in_chunk,
+                            prefixes: Sequence[bytes], chunk_log2: int):
+    """Like chunk_paths_from_planes but sourcing each request's chunk from
+    pre-derived [S, C, chunk] range columns (DeviceColumns.derive_ranges):
+    request i reads ranges[sel_s[i], col_indices[i]]. No resident [C, n]
+    matrix is needed. Same return contract."""
+    if len(sel_s) == 0:
+        return (np.zeros((0, chunk_log2, 32), np.uint8), np.zeros((0, 32), np.uint8),
+                np.zeros(0, np.uint64))
+    dev = ranges.device
+    vals = ranges[_as_index(sel_s, dev), _as_index(col_indices, dev)]
+    return _chunk_paths_from_values(vals, idx_in_chunk, prefixes, chunk_log2)

@@ -2,8 +2,9 @@
 
 Counterpart of sezkp_tpu/ops/ntt_mxu.py (the phase kernels and their
 composition), of ``ntt_jax._ntt_stages`` (the radix-2 stages, used here as
-the plain version) and of the DEEP glue of sezkp_tpu/ops/ntt_pallas.py
-(``scale_pad``, ``deep_divide``, ``deep_coset_lde_planes``).
+the plain version) and of sezkp_tpu/ops/ntt_pallas.py: its four-step kernels
+for n < 2^14 and its DEEP glue (``scale_pad``, ``deep_divide``,
+``deep_coset_lde_planes``).
 
 A transform of n = m1*m2 (two factors) or m1*m2*m3 (three, from 2^18 up)
 points runs as one kernel launch per factor, natural order in and out, the
@@ -19,7 +20,17 @@ inverse's n^-1 folded into the last phase:
   last axis of ``[m1, m2, mc]``, written transposed as ``[mc, m2, m1]`` so the
   flat result is in natural order.
 
-All three are in csrc/ntt_phases.cu. Each moves 16 B per element per phase
+Below 2^MIN_LOG2 the transform is the four-step form n = n1*n2 with
+n1 = 2^(log2(n) // 2), two launches (csrc/ntt_small.cu):
+
+- **K5 ``ntt_small_cols``** replaces ``ntt_pallas.phase_a_kernel``: DFT of
+  length n1 down every column of ``[n1, n2]``, then times ``w_n^(k1*j2)``.
+- **K6 ``ntt_small_rows``** replaces ``ntt_pallas.phase_b_kernel`` and the
+  scale and transpose that follow it there: DFT of length n2 along every row,
+  times n^-1 for the inverse, stored as ``[n2, n1]`` (natural order).
+
+At these sizes (at most 64 KB of data) a launch's latency is the cost, not its
+bytes or operations. K2-K4 are in csrc/ntt_phases.cu. Each moves 16 B per element per phase
 plus the twiddle reads, and does log2(m)/2 butterflies per element. In the
 sm_90a disassembly a butterfly's field arithmetic is 56 instructions (modular
 multiply 34, add 14, subtract 8), 39 of them on the ALU pipe: by those counts
@@ -28,8 +39,7 @@ path's shapes (chip_smoke.py computes both). The phase-A twiddle of the three-fa
 ``ta`` (rides K3) and a periodic ``tb`` (rides K2): two small tables that stay
 in cache instead of one of n elements to stream.
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
-version only for a CPU tensor. Until the small-n kernels are ported, a CUDA
-tensor with n < 2^MIN_LOG2 raises NotImplementedError.
+version only for a CPU tensor.
 
 The elementwise field work of the DEEP glue (``x - z``, the batched inverse by
 ``x^(p-2)``, the final product) is plain tensor code on either device, as it
@@ -48,7 +58,7 @@ from . import goldilocks as G
 from . import goldilocks_torch as FT
 from . import ntt as ntt_host
 
-MIN_LOG2 = 14  # below this the JAX package uses its roll-based kernels (not ported yet)
+MIN_LOG2 = 14  # below this the four-step small-n form (K5, K6); from here up the multi-step form
 
 _tables: Dict[Tuple, torch.Tensor] = {}
 
@@ -80,7 +90,7 @@ def _wp(m_log2: int, inverse: bool, device) -> torch.Tensor:
     """w_m^k for k < m/2 (the butterflies' twiddles), int64 [m/2]."""
     return _cached(
         ("wp", m_log2, inverse), device,
-        lambda: ntt_host.powers(_root(m_log2, inverse), max(1 << (m_log2 - 1), 1)),
+        lambda: ntt_host.powers(_root(m_log2, inverse), max((1 << m_log2) >> 1, 1)),
     )
 
 
@@ -201,6 +211,18 @@ def phase_last_plain(x, inverse: bool, scale: int = 1):
     return _scaled(y, scale).permute(2, 1, 0).contiguous()
 
 
+def small_cols_plain(x, inverse: bool, tw):
+    """Plain PyTorch version of K5: x [n1, n2] -> [n1, n2]."""
+    n1 = x.shape[0]
+    return FT.mul(_ntt_stages(x.T, n1.bit_length() - 1, inverse).T, tw).contiguous()
+
+
+def small_rows_plain(x, inverse: bool, scale: int = 1):
+    """Plain PyTorch version of K6: x [n1, n2] -> [n2, n1]."""
+    n2 = x.shape[1]
+    return _scaled(_ntt_stages(x, n2.bit_length() - 1, inverse), scale).T.contiguous()
+
+
 # ------------------------------ kernel wrappers -----------------------------
 
 
@@ -282,9 +304,55 @@ def phase_last(x, inverse: bool, scale: int = 1):
     return y
 
 
+def _small_logs(x: torch.Tensor, what: str):
+    _check_field(x, 2, what)
+    l1, l2 = x.shape[0].bit_length() - 1, x.shape[1].bit_length() - 1
+    if tuple(x.shape) != (1 << l1, 1 << l2) or max(l1, l2) > 10:
+        raise ValueError(f"{what} takes [n1, n2] with powers of two up to 2^10")
+    return l1, l2
+
+
+def small_cols(x, inverse: bool, tw):
+    """K5 wrapper: x [n1, n2] -> [n1, n2], the length-n1 DFT of every column
+    times tw [n1, n2] (the four-step twiddle w_n^(k1*j2))."""
+    if not x.is_cuda:
+        return small_cols_plain(x, inverse, tw)
+    l1, l2 = _small_logs(x, "small_cols")
+    if tuple(tw.shape) != tuple(x.shape):
+        raise ValueError("tw must have x's shape")
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = _kernels.lib().sezkp_ntt_small_cols(
+            x.data_ptr(), y.data_ptr(), l1, l2,
+            _wp(l1, inverse, x.device).data_ptr(), _ptr(tw, x.device), _kernels.stream_ptr(),
+        )
+    _kernels.check(rc, "ntt_small_cols")
+    small_cols.launches += 1
+    return y
+
+
+def small_rows(x, inverse: bool, scale: int = 1):
+    """K6 wrapper: x [n1, n2] -> [n2, n1] (flat = natural order), the
+    length-n2 DFT of every row times scale."""
+    if not x.is_cuda:
+        return small_rows_plain(x, inverse, scale)
+    l1, l2 = _small_logs(x, "small_rows")
+    y = torch.empty((1 << l2, 1 << l1), dtype=torch.int64, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _kernels.lib().sezkp_ntt_small_rows(
+            x.data_ptr(), y.data_ptr(), l1, l2,
+            _wp(l2, inverse, x.device).data_ptr(), int(scale), _kernels.stream_ptr(),
+        )
+    _kernels.check(rc, "ntt_small_rows")
+    small_rows.launches += 1
+    return y
+
+
 phase_axis.launches = 0
 phase_batched.launches = 0
 phase_last.launches = 0
+small_cols.launches = 0
+small_rows.launches = 0
 
 
 # ------------------------------ whole transforms -----------------------------
@@ -294,19 +362,17 @@ def _ntt(a: torch.Tensor, inverse: bool) -> torch.Tensor:
     n = int(a.shape[0])
     n_log2 = n.bit_length() - 1
     assert a.dim() == 1 and 1 << n_log2 == n
-    if n_log2 < MIN_LOG2:
-        if a.is_cuda:
-            raise NotImplementedError(
-                f"NTT of 2^{n_log2} points on the card: the small-n kernels "
-                f"(n < 2^{MIN_LOG2}) are not ported yet"
-            )
-        if n <= 1:
-            return a.clone()
-        return _scaled(_ntt_stages(a, n_log2, inverse), G.inv(n) if inverse else 1)
+    if n <= 1:
+        return a.clone()
     dev = a.device
-    logs = _factor_logs(n_log2)
     inv_n = G.inv(n) if inverse else 1
     a = a.contiguous()
+    if n_log2 < MIN_LOG2:
+        l1 = min(10, n_log2 // 2)
+        l2 = n_log2 - l1
+        x = small_cols(a.reshape(1 << l1, 1 << l2), inverse, tw=_twiddle_matrix(l1, l2, inverse, dev))
+        return small_rows(x, inverse, scale=inv_n).reshape(n)
+    logs = _factor_logs(n_log2)
     if len(logs) == 2:
         l1, l2 = logs
         m1, m2 = 1 << l1, 1 << l2

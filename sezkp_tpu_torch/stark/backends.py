@@ -25,7 +25,10 @@ class StarkV1:
     def prove(
         blocks: Sequence[BlockSummary], manifest_root: bytes, device=None, **options
     ) -> ProofArtifact:
-        """`options` are prove_v1's keyword arguments (thresholds, timings)."""
+        """`options` are prove_v1's keyword arguments: the route
+        (`device_cols_min`), the device route's memory policy
+        (`cv_budget_bytes`, `release_planes_bytes`, `compose_scan_min_log2`),
+        the host-columns route's thresholds, and `timings`."""
         proof = prove_v1(blocks, manifest_root, device, **options)
         return ProofArtifact(
             backend=BackendKind.STARK,

@@ -1,0 +1,496 @@
+"""Device-side column derivation + AIR composition.
+
+Counterpart of sezkp_tpu/stark/v1/columns_device.py. Only the raw movement
+logs (about 2 + tau bytes per row when packed) and per-block constants go up
+to the device; every committed column is derived there (heads are per-block
+cumulative sums, offsets are gathered block constants), and the full AIR
+composition plus the ZK masks is evaluated there. Bit-identical to
+columns.TraceColumns.build + air.compose_all_rows + the masks (cross-tested),
+and to the JAX package's functions of the same names.
+
+A column matrix is one ``int64 [C, n]`` field tensor (see
+ops/goldilocks_torch.py) where the JAX package keeps two ``uint32`` planes;
+rows are in ``all_labels`` order. Nothing here is a kernel: it is plain
+tensor code on whatever device the inputs lie on, as it is outside any
+kernel in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ...ops import goldilocks as G
+from ...ops import goldilocks_torch as FT
+from ...ops import ntt as ntt_host
+from ...ops import ntt_torch
+from . import params
+from .air import Alphas
+from .columns import HEAD_BITS, SYM_BITS, all_labels
+
+# Granularity of the precomputed cumsum carries: derive_ranges() starts must
+# be multiples of this (== params.COL_CHUNK_LOG2, the opening chunk size).
+CARRY_GRAN_LOG2 = 10
+assert CARRY_GRAN_LOG2 == params.COL_CHUNK_LOG2, (
+    "carry granularity must match the opening chunk size"
+)
+
+# From this row count (log2) up the composition runs slab by slab
+# (2^COMPOSE_SEG_LOG2 rows at a time), which bounds its temporaries.
+COMPOSE_SCAN_MIN_LOG2 = 23
+COMPOSE_SEG_LOG2 = 19
+
+_M32 = 0xFFFFFFFF
+
+
+def _concat_blocks(arrs, total_rows: int) -> np.ndarray:
+    """Concatenate per-block row arrays, zero-copy when they are adjacent
+    views into one shared base (partition_trace emits such views)."""
+    a0 = arrs[0]
+    base = a0.base
+    if base is not None and isinstance(base, np.ndarray) \
+            and base.flags["C_CONTIGUOUS"]:
+        row_bytes = a0.dtype.itemsize * (
+            int(np.prod(a0.shape[1:])) if a0.ndim > 1 else 1
+        )
+        ptr0 = a0.__array_interface__["data"][0]
+        expect = ptr0
+        ok = row_bytes > 0
+        for a in arrs:
+            if (
+                a.base is not base
+                or a.dtype != a0.dtype
+                or a.shape[1:] != a0.shape[1:]
+                or not a.flags["C_CONTIGUOUS"]
+                or a.__array_interface__["data"][0] != expect
+            ):
+                ok = False
+                break
+            expect += a.nbytes
+        if ok:
+            off = ptr0 - base.__array_interface__["data"][0]
+            if off % row_bytes == 0 and base.shape[1:] == a0.shape[1:]:
+                start = off // row_bytes
+                if start + total_rows <= base.shape[0]:
+                    return base[start : start + total_rows]
+    return np.concatenate(arrs)
+
+
+def _host_inputs(blocks) -> dict:
+    """Pack movement logs + block structure into small host arrays."""
+    n = sum(b.n_steps for b in blocks)
+    tau = blocks[0].tau if blocks else 0
+    nb = len(blocks)
+    input_mv = _concat_blocks([b.movement_log.input_mv for b in blocks], n)
+    tape_mv = _concat_blocks(
+        [b.movement_log.tape_mv for b in blocks], n
+    )  # [n, tau]
+    wflag = _concat_blocks([b.movement_log.write_flag for b in blocks], n)
+    wsym = _concat_blocks([b.movement_log.write_sym for b in blocks], n)
+
+    lens = np.fromiter(
+        (b.n_steps for b in blocks), dtype=np.int64, count=nb
+    )
+    block_start = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int32)
+    block_of = np.repeat(np.arange(nb, dtype=np.int32), lens)
+    is_first = np.zeros(n, dtype=np.uint8)
+    is_last = np.zeros(n, dtype=np.uint8)
+    nz = lens > 0
+    is_first[block_start[nz]] = 1
+    is_last[(block_start[nz] + lens[nz] - 1).astype(np.int64)] = 1
+
+    wins = np.stack([b.windows for b in blocks])  # [nb, tau, 2] int64
+    win_len = (np.abs(wins[:, :, 1] - wins[:, :, 0]) + 1).astype(np.uint64)
+    in_off = np.stack([b.head_in_offsets for b in blocks]).astype(np.uint64)
+    out_off = np.stack([b.head_out_offsets for b in blocks]).astype(np.uint64)
+    return dict(
+        n=n,
+        tau=tau,
+        input_mv=input_mv,
+        tape_mv=tape_mv,
+        wflag=wflag,
+        wsym=wsym,
+        block_of=block_of,
+        block_start=block_start,
+        is_first=is_first,
+        is_last=is_last,
+        win_len=win_len,
+        in_off=in_off,
+        out_off=out_off,
+    )
+
+
+def _from_i64_small(x: torch.Tensor) -> torch.Tensor:
+    """Signed integers in (-2^31, 2^31) -> field (rem_euclid semantics).
+
+    In the int64 representation a negative x is the bit pattern of p - |x|,
+    which is x + p with p read as a signed int64 (1 - 2^32)."""
+    x = x.to(torch.int64)
+    return torch.where(x < 0, x + FT._P_I64, x)
+
+
+def _unpack_logs(pk: torch.Tensor):
+    """Packed u8 movement-log plane -> (tape_mv i8, wflag u8, wsym i32).
+
+    Layout: bits 0-1 = tape_mv + 1, bit 2 = write_flag, bits 3-6 =
+    write_sym. Packing at the host->device boundary quarters the raw-log
+    upload (2+2*tau B/row -> 2+tau B/row at tau=8); the unpack runs on the
+    device and feeds the unchanged derivations."""
+    tmv = ((pk & 3).to(torch.int32) - 1).to(torch.int8)
+    wfl = (pk >> 2) & 1
+    wsy = ((pk >> 3) & 15).to(torch.int32)
+    return tmv, wfl, wsy
+
+
+def pack_logs(tape_mv_t: np.ndarray, wflag_t: np.ndarray,
+              wsym_t: np.ndarray) -> np.ndarray:
+    """[tau, n] host arrays -> packed u8 [tau, n] (see _unpack_logs).
+
+    The callers pass transposed views of contiguous [n, tau] arrays; the
+    arithmetic runs on the contiguous bases (sequential passes, in-place
+    accumulation) and only the final transpose is strided."""
+
+    def rows(mv: np.ndarray, wf: np.ndarray, ws: np.ndarray) -> np.ndarray:
+        pk = (mv + np.int8(1)).view(np.uint8)  # {-1,0,1} -> {0,1,2}
+        pk |= wf.astype(np.uint8) << 2
+        pk |= ws.astype(np.uint8) << 3
+        return pk
+
+    if (
+        not tape_mv_t.flags["C_CONTIGUOUS"]
+        and tape_mv_t.T.flags["C_CONTIGUOUS"]
+        and wflag_t.T.flags["C_CONTIGUOUS"]
+        and wsym_t.T.flags["C_CONTIGUOUS"]
+    ):
+        return rows(tape_mv_t.T, wflag_t.T, wsym_t.T).T
+    return rows(
+        np.ascontiguousarray(tape_mv_t),
+        np.ascontiguousarray(wflag_t),
+        np.ascontiguousarray(wsym_t),
+    )
+
+
+def derive_cols_core(imv, tmv, wfl, wsy, bo, isf, isl,
+                     win_len, in_off, out_off, anchor, carry_start):
+    """Derive the [..., C, L] column matrix of contiguous row ranges from raw
+    movement logs; leading batch dimensions (one per range) are optional.
+
+    imv i8 [..., L]; tmv i8 [..., tau, L]; wfl u8 and wsy i32 likewise;
+    bo i32 [..., L] global block index per row; isf/isl u8 [..., L];
+    win_len/in_off/out_off int64 [tau, nb] (the u32 values, global);
+    anchor i32 [tau, nb] exclusive tape-mv csum at each block start;
+    carry_start i32 [..., tau] exclusive csum at each range start.
+
+    Heads are the running sum of the moves minus its value at block entry,
+    anchored at WINDOW-LEFT (entry = in_off; see columns.py for the
+    deliberate deviation from the reference's entry-anchored heads)."""
+    tau, length = tmv.shape[-2], tmv.shape[-1]
+    batch = tuple(tmv.shape[:-2])
+    g = torch.cumsum(tmv, dim=-1, dtype=torch.int32) + carry_start[..., None]
+    bo = bo.long()
+
+    def per_block(table):  # [tau, nb] -> [..., tau, L]
+        return table[:, bo].movedim(0, -2)
+
+    # u32 -> i32 wraps as the two's-complement reading does
+    in_off_i32 = per_block(in_off).to(torch.int32)
+    head = g - per_block(anchor) + in_off_i32
+
+    out = torch.empty(batch + (3 + 7 * tau, length), dtype=torch.int64, device=tmv.device)
+    out[..., 0, :] = _from_i64_small(imv)
+    out[..., 1, :] = isf
+    out[..., 2, :] = isl
+    for k, slab in enumerate((
+        _from_i64_small(tmv), wfl, wsy, _from_i64_small(head),
+        per_block(win_len), per_block(in_off), per_block(out_off),
+    )):
+        out[..., 3 + k * tau : 3 + (k + 1) * tau, :] = slab
+    return out
+
+
+def _block_table(a: np.ndarray) -> np.ndarray:
+    """u64 [nb, tau] block constants -> int64 [tau, nb] holding the low 32 bits."""
+    return np.ascontiguousarray((a & np.uint64(_M32)).astype(np.int64).T)
+
+
+def _cumsum_anchors(tape_mv: np.ndarray, n: int, tau: int, bs: np.ndarray):
+    """Global tape-mv csum (exclusive) at each block start and at each
+    2^CARRY_GRAN_LOG2 granule start: (anchor i32 [tau, nb], carry i32
+    [tau, n >> CARRY_GRAN_LOG2]).
+
+    Only anchor rows are needed, so when every anchor position is a multiple
+    of a common power-of-two segment size, sum per segment and cumsum the
+    [n/g0, tau] segment totals instead of running a strided axis-0 cumsum
+    over the full [n, tau] slab."""
+    gran = 1 << CARRY_GRAN_LOG2
+    gs = np.arange(0, n, gran, dtype=np.int64)
+    g0 = gran
+    sizes = np.diff(np.append(bs, n))
+    if sizes.size and (sizes == sizes[0]).all() and sizes[0] > 0 \
+            and (int(sizes[0]) & (int(sizes[0]) - 1)) == 0:
+        g0 = min(g0, int(sizes[0]))
+    if n % g0 == 0 and (bs % g0 == 0).all() and gran % g0 == 0:
+        seg = np.add.reduce(
+            tape_mv.reshape(n // g0, g0, tau), axis=1, dtype=np.int32,
+        )
+        gcs = np.cumsum(seg, axis=0, dtype=np.int32)  # [n/g0, tau]
+
+        def excl(idx):
+            j = np.maximum(idx // g0 - 1, 0)
+            return np.where(
+                (idx == 0)[None, :], np.int32(0), gcs[j].T
+            ).astype(np.int32)
+
+        return excl(bs), excl(gs)
+    csum = np.cumsum(tape_mv.astype(np.int32), axis=0)  # [n, tau]
+
+    def excl(idx):
+        return np.where(
+            (idx == 0)[None, :], np.int32(0), csum[np.maximum(idx - 1, 0)].T
+        ).astype(np.int32)
+
+    return excl(bs), excl(gs)
+
+
+class DeviceColumns:
+    """Column matrix [C, n] as a device-resident int64 field tensor.
+
+    The matrix (`.planes`) is derived lazily from the device-resident raw
+    inputs (about 20 bytes/row against the matrix's 472 bytes/row at tau=8)
+    and can be dropped with :meth:`release_planes` between the composition
+    and the openings phase, when it would crowd the LDE/FRI transients out
+    of device memory. Re-deriving replays the derivation over the resident
+    raw inputs (no host re-upload).
+
+    `device=None` means the CUDA card; the CPU only when asked."""
+
+    def __init__(self, blocks: Sequence, device=None):
+        h = _host_inputs(blocks)
+        n, tau = h["n"], h["tau"]
+        # pack (tape_mv, write_flag, write_sym) into one u8 plane when the
+        # symbol fits 4 bits (always for the reference generator; larger
+        # alphabets fall back to the unpacked upload)
+        packed = (
+            n > 0
+            and int(h["wsym"].max(initial=0)) <= 15
+            and int(h["tape_mv"].min(initial=0)) >= -1
+            and int(h["tape_mv"].max(initial=0)) <= 1
+        )
+        if packed:
+            logs = (np.ascontiguousarray(
+                pack_logs(h["tape_mv"].T, h["wflag"].T, h["wsym"].T)),)
+        else:
+            logs = (
+                np.ascontiguousarray(h["tape_mv"].T),
+                np.ascontiguousarray(h["wflag"].astype(np.uint8).T),
+                np.ascontiguousarray(h["wsym"].astype(np.int32).T),
+            )
+        anchor, carry = _cumsum_anchors(h["tape_mv"], n, tau, h["block_start"])
+        self._init_raw(
+            n, tau, packed, h["input_mv"], logs, h["block_of"], h["is_first"],
+            h["is_last"], _block_table(h["win_len"]), _block_table(h["in_off"]),
+            _block_table(h["out_off"]), anchor, carry, device,
+        )
+
+    @classmethod
+    def from_raw(cls, n, tau, packed, input_mv, logs, block_of, is_first, is_last,
+                 win_len, in_off, out_off, anchor, carry, device=None) -> "DeviceColumns":
+        """Build from raw host arrays as `__init__` derives them from blocks:
+        `logs` is (packed u8 [tau, n],) or (tape_mv i8, wflag u8, wsym i32),
+        each [tau, n]; the block tables are int64 [tau, nb]; anchor and carry
+        are int32 [tau, nb] and [tau, n >> CARRY_GRAN_LOG2]."""
+        self = cls.__new__(cls)
+        self._init_raw(n, tau, packed, input_mv, logs, block_of, is_first, is_last,
+                       win_len, in_off, out_off, anchor, carry, device)
+        return self
+
+    def _init_raw(self, n, tau, packed, input_mv, logs, block_of, is_first, is_last,
+                  win_len, in_off, out_off, anchor, carry, device) -> None:
+        self.n = int(n)
+        self.tau = int(tau)
+        self.labels = all_labels(self.tau)
+        self.device = torch.device("cuda" if device is None else device)
+        self._packed = bool(packed)
+
+        def up(a):
+            a = np.ascontiguousarray(a)
+            if not a.flags.writeable:  # torch refuses to alias read-only memory
+                a = a.copy()
+            return torch.from_numpy(a).to(self.device)
+
+        self._input_mv = up(input_mv)
+        self._logs = tuple(up(a) for a in logs)
+        self._block_of = up(block_of)
+        self._is_first = up(is_first)
+        self._is_last = up(is_last)
+        self._tables = (up(win_len), up(in_off), up(out_off), up(anchor))
+        self._carry = up(carry)
+        self._planes: Optional[torch.Tensor] = None
+
+    def _derive(self, rows) -> torch.Tensor:
+        """Columns of the rows `rows` selects along the last axis (a slice,
+        or an int64 [S, L] index tensor of contiguous ranges)."""
+        logs = tuple(a[:, rows] for a in self._logs)
+        if isinstance(rows, torch.Tensor):  # [tau, S, L] -> [S, tau, L]
+            logs = tuple(a.movedim(0, 1) for a in logs)
+            carry = self._carry[:, rows[:, 0] >> CARRY_GRAN_LOG2].T
+        else:
+            carry = self._carry[:, 0]
+        tmv, wfl, wsy = _unpack_logs(logs[0]) if self._packed else logs
+        return derive_cols_core(
+            self._input_mv[rows], tmv, wfl, wsy, self._block_of[rows],
+            self._is_first[rows], self._is_last[rows], *self._tables, carry,
+        )
+
+    @property
+    def planes(self) -> torch.Tensor:
+        """The [C, n] column matrix (derived on first use)."""
+        if self._planes is None:
+            self._planes = self._derive(slice(None))
+        return self._planes
+
+    def release_planes(self) -> None:
+        """Drop the derived matrix; the next `.planes` access re-derives it
+        from the raw inputs."""
+        self._planes = None
+
+    @property
+    def planes_resident(self) -> bool:
+        return self._planes is not None
+
+    def derive_ranges(self, starts, length: int) -> torch.Tensor:
+        """[S, C, length] columns of the row ranges starting at `starts`
+        (each a multiple of 2^CARRY_GRAN_LOG2), without materializing the
+        full matrix. Bit-identical to slices of `.planes`."""
+        if length < (1 << CARRY_GRAN_LOG2):
+            raise ValueError("range length below the carry granularity")
+        starts = np.asarray(starts, dtype=np.int64)
+        if np.any(starts % (1 << CARRY_GRAN_LOG2)) or np.any(starts < 0) \
+                or np.any(starts + length > self.n):
+            raise ValueError("range starts must be granule-aligned and inside the trace")
+        rows = torch.from_numpy(starts).to(self.device)[:, None] \
+            + torch.arange(length, device=self.device)[None, :]
+        return self._derive(rows)
+
+    def to_host(self) -> np.ndarray:
+        """u64 [C, n] (for parity tests)."""
+        return FT.unpack(self.planes)
+
+
+# ----------------------- device AIR composition -----------------------------
+
+
+def _w_base_pows_device(n_log2: int, device) -> torch.Tensor:
+    """The base-domain points w^i, int64 [n], cached per device."""
+    return ntt_torch._cached(
+        ("wbase", n_log2), device,
+        lambda: ntt_host.powers(G.primitive_root_2exp(n_log2), 1 << n_log2),
+    )
+
+
+def _sum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Field sum over axis 0 (exact, so the order does not matter)."""
+    acc = x[0]
+    for r in range(1, x.shape[0]):
+        acc = FT.add(acc, x[r])
+    return acc
+
+
+def compose_rows_core(cols, tau: int, a, mc, xs, head_next, mv_next):
+    """Base composition + ZK masks over a [C, m] column slab.
+
+    cols: int64 [C, m] in all_labels order; a: int64 [11] alphas; mc: int64
+    [n_masks, mask_deg] mask coefficients; xs: [m] base-domain points;
+    head_next/mv_next: [tau, m] next-row slabs (the caller supplies the
+    wrap). Every term is computed for all tapes at once on [tau, m] slabs and
+    summed over the tapes; field sums are exact, so the result equals the
+    JAX package's per-tape tree sum element for element."""
+    def slab(k):
+        return cols[3 + k * tau : 3 + (k + 1) * tau]
+
+    mv, flg, sym, head, wlen, ioff, ooff = (slab(k) for k in range(7))
+    is_first, is_last = cols[1], cols[2]
+    one = torch.ones((), dtype=torch.int64, device=cols.device)
+    one_minus_last = FT.sub(one, is_last)
+
+    def low(x, bits):
+        # the mask acts on the canonical value's low limb
+        return (x & _M32) & ((1 << bits) - 1)
+
+    slack = FT.sub(FT.sub(wlen, one), head)
+    # one term at a time, so only two [tau, m] results are alive at once
+    terms = (
+        lambda: FT.mul(a[0], FT.mul(flg, FT.sub(flg, one))),
+        lambda: FT.mul(a[1], FT.mul(mv, FT.mul(FT.sub(mv, one), FT.add(mv, one)))),
+        lambda: FT.mul(a[2], FT.mul(one_minus_last, FT.sub(FT.sub(head_next, head), mv_next))),
+        lambda: FT.mul(a[4], FT.mul(flg, FT.sub(head, low(head, HEAD_BITS)))),
+        lambda: FT.mul(a[6], FT.mul(flg, FT.sub(slack, low(slack, HEAD_BITS)))),
+        lambda: FT.mul(a[8], FT.mul(flg, FT.sub(sym, low(sym, SYM_BITS)))),
+        lambda: FT.mul(a[9], FT.mul(is_first, FT.sub(FT.sub(head, mv), ioff))),
+        lambda: FT.mul(a[10], FT.mul(is_last, FT.sub(head, ooff))),
+    )
+    acc = torch.zeros_like(xs)
+    if tau:
+        per_tape = terms[0]()
+        for term in terms[1:]:
+            per_tape = FT.add(per_tape, term())
+        acc = _sum_rows(per_tape)
+
+    for k in range(mc.shape[0]):  # ZK masks, Horner on [m]
+        mk = torch.zeros_like(xs)
+        for d in range(mc.shape[1] - 1, -1, -1):
+            mk = FT.add(FT.mul(mk, xs), mc[k, d])
+        acc = FT.add(acc, mk)
+    return acc
+
+
+def _compose_scan(cols, tau, a, mc, xs, seg_log2: int) -> torch.Tensor:
+    """Composition slab by slab (2^seg_log2 rows each): bounds the [tau, m]
+    temporaries next to the resident column matrix; same output as one pass
+    over all rows. The next-row slab of the last segment wraps to row 0."""
+    n = cols.shape[1]
+    seg = 1 << seg_log2
+    assert n % seg == 0 and seg >= 2
+    out = torch.empty(n, dtype=torch.int64, device=cols.device)
+    h0, m0 = 3 + 3 * tau, 3  # head and mv rows in all_labels order
+    for s in range(0, n, seg):
+        nstart = (s + seg) % n
+
+        def next_slab(base):
+            return torch.cat(
+                [cols[base : base + tau, s + 1 : s + seg],
+                 cols[base : base + tau, nstart : nstart + 1]], dim=1)
+
+        out[s : s + seg] = compose_rows_core(
+            cols[:, s : s + seg], tau, a, mc, xs[s : s + seg],
+            next_slab(h0), next_slab(m0),
+        )
+    return out
+
+
+def compose_device(dc: DeviceColumns, alphas: Alphas, mask_coeffs,
+                   scan_min_log2: int = COMPOSE_SCAN_MIN_LOG2) -> torch.Tensor:
+    """Base composition + ZK masks for all rows, on dc's device: int64 [n].
+
+    Bit-identical to air.compose_all_rows + masking.eval_masks_sum_at_points.
+    From 2^scan_min_log2 rows up it runs slab by slab (same output)."""
+    a = FT.pack(np.array([
+        alphas.bool_flag, alphas.mv_domain, alphas.head_update,
+        alphas.head_bits_bool, alphas.head_reconstruct, alphas.slack_bits_bool,
+        alphas.slack_reconstruct, alphas.sym_bits_bool, alphas.sym_reconstruct,
+        alphas.boundary_first, alphas.boundary_last,
+    ], dtype=np.uint64), dc.device)
+    mc = FT.pack(np.array(mask_coeffs, dtype=np.uint64), dc.device)
+    n_log2 = dc.n.bit_length() - 1
+    xs = _w_base_pows_device(n_log2, dc.device)
+    cols, tau = dc.planes, dc.tau
+    if n_log2 >= scan_min_log2 and n_log2 >= 2:
+        return _compose_scan(cols, tau, a, mc, xs, min(COMPOSE_SEG_LOG2, n_log2 - 1))
+    h0, m0 = 3 + 3 * tau, 3
+    return compose_rows_core(
+        cols, tau, a, mc, xs,
+        torch.roll(cols[h0 : h0 + tau], -1, dims=1),
+        torch.roll(cols[m0 : m0 + tau], -1, dims=1),
+    )

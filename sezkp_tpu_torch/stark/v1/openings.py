@@ -1,15 +1,24 @@
 """Column commitment engine: chunked roots + openings.
 
-Counterpart of ``ColumnEngine`` in sezkp_tpu/stark/v1/openings.py for host
-``TraceColumns``. From ``device_hash_min`` rows up the commitments are
-device-resident: the columns are uploaded once, leaf CVs are hashed and kept
-on the device (kernel K1), only chunk roots (KBs) and opening paths (KBs)
-come back; the outer trees over the chunk roots are small and built on the
-host. Below the threshold everything runs on the host. Roots and paths are
-bit-identical either way (reference: crates/sezkp-stark/src/v1/openings.rs).
+Counterpart of ``ColumnEngine`` in sezkp_tpu/stark/v1/openings.py. Two
+sources of column values:
 
-The recompute/ranges openings (columns derived on the device) and the
-streaming engine are not ported yet.
+- host ``TraceColumns`` (`tc`): from ``device_hash_min`` rows up the columns
+  are uploaded once and committed on the device; below it everything runs on
+  the host;
+- ``DeviceColumns`` (`dc`): the columns were derived on the device and are
+  hashed, committed and opened there; opened values are gathered there too.
+
+On the device the leaf CVs are hashed with kernel K1 and stay resident, only
+chunk roots (KBs) and opening paths (KBs) come back, and the outer trees over
+the chunk roots are built on the host. With `dc`, when the leaf CVs
+(C * n * 32 bytes) would exceed ``cv_budget_bytes`` the commitment keeps the
+chunk roots only and the openings recompute the queried chunks' trees: from
+the column matrix while it is resident, else from ranges derived anew from
+the raw inputs. Roots and paths are bit-identical on every route (reference:
+crates/sezkp-stark/src/v1/openings.rs).
+
+The streaming engine is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,13 +41,20 @@ from .proof import ColumnRoot, Opening
 DEVICE_HASH_MIN = 1 << 13
 
 
+# Leaf CVs stay resident up to this many bytes (C * n * 32): 16 GiB holds
+# the 59 columns of T = 2^22 (7.9 GB) beside the LDE and FRI layers of that
+# size on an 80 GB card.
+CV_BUDGET_BYTES = 16 << 30
+
+
 def _label_prefix(lb: str) -> bytes:
     return params.DS_COL_LEAF.encode() + struct.pack("<I", len(lb)) + lb.encode()
 
 
 class ColumnEngine:
-    """In-memory engine over host TraceColumns `tc`; `device` is where the
-    resident commitments live (a torch device; the CPU only when asked)."""
+    """In-memory engine over host TraceColumns `tc`, or over DeviceColumns
+    `dc` (then `tc` may be None). `device` is where the resident commitments
+    live (a torch device; the CPU only when asked); with `dc` it is dc's."""
 
     def __init__(
         self,
@@ -46,18 +62,27 @@ class ColumnEngine:
         chunk_log2: int = params.COL_CHUNK_LOG2,
         device=None,
         device_hash_min: int = DEVICE_HASH_MIN,
+        dc=None,
+        cv_budget_bytes: int = CV_BUDGET_BYTES,
     ):
         self.tc = tc
+        self._dc = dc
         self.chunk_log2 = chunk_log2
-        self.device = torch.device("cuda" if device is None else device)
+        if dc is not None:
+            if dc.n % (1 << chunk_log2):
+                raise ValueError("device columns need a whole number of chunks")
+            self.device = dc.device
+        else:
+            self.device = torch.device("cuda" if device is None else device)
         self.device_hash_min = device_hash_min
-        self._n = tc.n
-        self.labels = all_labels(tc.tau)
+        self.cv_budget_bytes = cv_budget_bytes
+        self._n = dc.n if dc is not None else tc.n
+        self.labels = all_labels(dc.tau if dc is not None else tc.tau)
         self._commits: Dict[str, ColumnCommit] = {}
         # device mode state
         self._dev = False
         self._dev_cvs = None  # int32 [C, 8, n] leaf CV planes (device-resident)
-        self._dev_label_idx: Dict[str, int] = {}
+        self._label_idx = {lb: i for i, lb in enumerate(self.labels)}
         self._croots: Dict[str, np.ndarray] = {}
         self._outer: Dict[str, MerkleTree] = {}
 
@@ -76,11 +101,9 @@ class ColumnEngine:
 
     def build_roots(self) -> List[ColumnRoot]:
         """Outer roots for every column in canonical label order."""
-        if (
-            not self._dev
-            and not self._commits
-            and self._n >= self.device_hash_min
-            and self._n % (1 << self.chunk_log2) == 0
+        if not self._dev and not self._commits and (
+            self._dc is not None
+            or (self._n >= self.device_hash_min and self._n % (1 << self.chunk_log2) == 0)
         ):
             self._build_device()
         if self._dev:
@@ -88,18 +111,24 @@ class ColumnEngine:
         return [ColumnRoot(lb, self._commit(lb).root()) for lb in self.labels]
 
     def _build_device(self) -> None:
-        vals = np.stack([self.tc.column_by_label(lb) for lb in self.labels])
-        cvs, roots = BT.columns_commit_device(
-            FT.pack(vals, self.device),
-            [_label_prefix(lb) for lb in self.labels],
-            self.chunk_log2,
-        )
+        prefixes = [_label_prefix(lb) for lb in self.labels]
+        if self._dc is None:
+            vals = np.stack([self.tc.column_by_label(lb) for lb in self.labels])
+            cvs, roots = BT.columns_commit_device(
+                FT.pack(vals, self.device), prefixes, self.chunk_log2
+            )
+        elif len(self.labels) * self._n * 32 <= self.cv_budget_bytes:
+            cvs, roots = BT.columns_commit_from_planes(
+                self._dc.planes, prefixes, self.chunk_log2
+            )
+        else:
+            cvs = None
+            roots = BT.columns_commit_roots_scan(self._dc.planes, prefixes, self.chunk_log2)
         croots = BT.croots_to_host(roots)
         for i, lb in enumerate(self.labels):
             self._croots[lb] = croots[i]
             self._outer[lb] = MerkleTree.from_leaves(croots[i])
         self._dev_cvs = cvs
-        self._dev_label_idx = {lb: i for i, lb in enumerate(self.labels)}
         self._dev = True
 
     def open(self, label: str, row_idx: int) -> Opening:
@@ -125,29 +154,43 @@ class ColumnEngine:
             return [self.open(lb, r) for lb, r in requests]
 
         chunk = 1 << self.chunk_log2
-        k = len(requests)
-        cols = np.empty(k, dtype=np.int64)
-        starts = np.empty(k, dtype=np.int64)
-        idxs = np.empty(k, dtype=np.int64)
-        for i, (lb, row) in enumerate(requests):
-            ci = row // chunk
-            cols[i] = self._dev_label_idx[lb]
-            starts[i] = ci * chunk
-            idxs[i] = row - ci * chunk
-        paths, _roots = BT.chunk_paths_device(
-            self._dev_cvs, cols, starts, idxs, self.chunk_log2
-        )
+        cols = np.array([self._label_idx[lb] for lb, _ in requests], dtype=np.int64)
+        rows = np.array([row for _, row in requests], dtype=np.int64)
+        starts = (rows // chunk) * chunk
+        idxs = rows - starts
+        if self._dev_cvs is not None:
+            paths, _roots = BT.chunk_paths_device(
+                self._dev_cvs, cols, starts, idxs, self.chunk_log2
+            )
+            if self._dc is not None:
+                flat = torch.as_tensor(cols * self._n + rows, device=self.device)
+                values = FT.unpack(self._dc.planes.reshape(-1)[flat])
+            else:
+                values = [self.tc.column_by_label(lb)[row] for lb, row in requests]
+        else:
+            # no resident CVs: recompute each queried chunk's tree from values
+            prefixes = [_label_prefix(lb) for lb, _ in requests]
+            if self._dc.planes_resident:
+                paths, _roots, values = BT.chunk_paths_from_planes(
+                    self._dc.planes, cols, starts, idxs, prefixes, self.chunk_log2
+                )
+            else:
+                # derive ONLY the queried chunks' columns from the raw inputs
+                uniq, sel = np.unique(starts, return_inverse=True)
+                ranges = self._dc.derive_ranges(uniq, chunk)
+                paths, _roots, values = BT.chunk_paths_from_ranges(
+                    ranges, sel, cols, idxs, prefixes, self.chunk_log2
+                )
 
         out: List[Opening] = []
         for i, (lb, row) in enumerate(requests):
             ci = row // chunk
-            ii = row - ci * chunk
             out.append(
                 Opening(
-                    value_le=G.to_le_bytes(self.tc.column_by_label(lb)[row]).tobytes(),
+                    value_le=int(values[i]).to_bytes(8, "little"),
                     index=row,
                     chunk_index=ci,
-                    index_in_chunk=ii,
+                    index_in_chunk=row - ci * chunk,
                     chunk_root=self._croots[lb][ci].tobytes(),
                     path_in_chunk=[paths[i, l].tobytes() for l in range(self.chunk_log2)],
                     path_to_chunk=self._outer[lb].open(ci),

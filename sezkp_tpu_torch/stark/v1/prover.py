@@ -5,21 +5,23 @@ Transcript schedule is byte-identical to crates/sezkp-stark/src/v1/prover.rs:
   fri layer roots (root0 then betas then folded roots) -> AIR row queries ->
   FRI queries.
 
-Counterpart of sezkp_tpu/stark/v1/prover.py on its host-columns route: the
-trace columns, the composition polynomial and the ZK masks are built on the
-host with numpy; the heavy parts run on the device the caller names:
+Counterpart of sezkp_tpu/stark/v1/prover.py, with both of its routes to the
+same proof bytes:
 
-- column commitments: leaf CVs hashed and kept resident (openings.ColumnEngine);
-- the DEEP coset LDE (INTT -> coset NTT -> divide) on device-resident field
-  tensors, never returned to the host (ops/ntt_torch.deep_coset_lde);
-- FRI layer hashing/folding (fri_device.DeviceFri);
-- openings answered from the resident commitments.
+- the **device-resident route**, from ``device_cols_min`` rows up (2^13, the
+  JAX package's threshold): only the raw movement logs go up; the columns are
+  derived on the device (columns_device.DeviceColumns), hashed and committed
+  there from the resident matrix, composed there (compose_device), LDE'd
+  (ops/ntt_torch.deep_coset_lde) and FRI'd (fri_device.DeviceFri) there, and
+  the openings gather their values there;
+- the **host-columns route** below that: the trace columns, the composition
+  and the ZK masks are built on the host with numpy, and the commitments,
+  the LDE and FRI take the device from their own size thresholds up.
 
 `device=None` means the CUDA card and raises when there is none; the CPU is
-used only when the caller passes device="cpu". Which parts take the device
-route is decided by plain size thresholds (arguments below); small inputs
-take the host numpy route for those parts. The proof bytes do not depend on
-the route or the device.
+used only when the caller passes device="cpu". Routes and memory policy are
+plain keyword arguments (below). The proof bytes depend on none of them, nor
+on the device.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from ...ops import ntt_torch
 from . import params
 from .air import Alphas, compose_all_rows
 from .columns import TraceColumns
+from .columns_device import COMPOSE_SCAN_MIN_LOG2, DeviceColumns, compose_device
 from .fri import fri_commit, fri_open_query, layer_tree
 from .fri_device import DeviceFri
 from .masking import (
@@ -47,13 +50,20 @@ from .masking import (
     derive_mask_coeffs,
     eval_masks_sum_at_points,
 )
-from .openings import DEVICE_HASH_MIN, ColumnEngine
+from .openings import CV_BUDGET_BYTES, DEVICE_HASH_MIN, ColumnEngine
 from .proof import FriQuery, PerTapeOpen, ProofV1, RowOpenings
 
-# Base-domain size (log2) from which the DEEP LDE runs on the device.
+# Rows from which the whole prove is device-resident (columns derived there).
+DEVICE_COLS_MIN = 1 << 13
+# On the host-columns route: base-domain size (log2) from which the DEEP LDE
+# runs on the device, and LDE-domain size (log2) from which FRI does.
 LDE_MIN_LOG2 = 15
-# LDE-domain size (log2) from which FRI runs on the device.
 FRI_MIN_LOG2 = 14
+# The [C, n] column matrix (8 * C * n bytes) is dropped after the composition
+# and derived anew for the openings from this size up: 8 GiB keeps the
+# 1.98 GB of T = 2^22 resident and lets go of what would crowd the LDE and
+# FRI layers of a larger trace on an 80 GB card.
+RELEASE_PLANES_BYTES = 8 << 30
 
 
 def resolve_device(device) -> torch.device:
@@ -119,11 +129,22 @@ class _Stages:
         self.t = now
 
 
+def _release_planes_if_large(dc: DeviceColumns, release_planes_bytes: int) -> None:
+    """Drop the [C, n] device column matrix when it reaches the budget (one
+    rule for the release before the LDE and the one after the openings)."""
+    if dc.planes_resident and 8 * len(dc.labels) * dc.n >= release_planes_bytes:
+        dc.release_planes()
+
+
 def prove_v1(
     blocks: Sequence[BlockSummary],
     manifest_root: bytes,
     device=None,
     *,
+    device_cols_min: int = DEVICE_COLS_MIN,
+    cv_budget_bytes: int = CV_BUDGET_BYTES,
+    release_planes_bytes: int = RELEASE_PLANES_BYTES,
+    compose_scan_min_log2: int = COMPOSE_SCAN_MIN_LOG2,
     device_hash_min: int = DEVICE_HASH_MIN,
     lde_min_log2: int = LDE_MIN_LOG2,
     fri_min_log2: int = FRI_MIN_LOG2,
@@ -131,16 +152,29 @@ def prove_v1(
 ) -> ProofV1:
     """Produce a v1 proof on `device` (None = the CUDA card).
 
-    The thresholds say from which sizes the commitments, the LDE and FRI take
-    the device route; `timings`, when a dict, receives wall seconds per stage."""
+    From `device_cols_min` rows up the prove is device-resident; its memory
+    policy is `cv_budget_bytes` (leaf CVs resident up to this size, else
+    roots only and recomputed openings), `release_planes_bytes` (the column
+    matrix is dropped between composition and openings from this size up)
+    and `compose_scan_min_log2` (composition slab by slab from this size up).
+    Below `device_cols_min` the columns and the composition are host numpy
+    and `device_hash_min`, `lde_min_log2`, `fri_min_log2` say from which sizes
+    the commitments, the LDE and FRI take the device. `timings`, when a dict,
+    receives wall seconds per stage."""
     device = resolve_device(device)
     n = sum(b.n_steps for b in blocks)
     tau = blocks[0].tau if blocks else 0
     assert n & (n - 1) == 0 and n > 0, "trace length must be a power of two"
     stages = _Stages(timings, device)
 
-    tc = TraceColumns.build(blocks)
-    stages.mark("host_columns")
+    dc = tc = None
+    if n >= device_cols_min:
+        dc = DeviceColumns(blocks, device)
+        dc.planes  # derive now, so the stage below is charged for it
+        stages.mark("device_columns")
+    else:
+        tc = TraceColumns.build(blocks)
+        stages.mark("host_columns")
 
     tr = Blake3Transcript(params.DS_V1_DOMAIN)
     tr.absorb("manifest_root", manifest_root)
@@ -149,7 +183,8 @@ def prove_v1(
 
     # ---- column commitments (batched) ----
     engine = ColumnEngine(
-        tc, params.COL_CHUNK_LOG2, device=device, device_hash_min=device_hash_min
+        tc, params.COL_CHUNK_LOG2, device=device, device_hash_min=device_hash_min,
+        dc=dc, cv_budget_bytes=cv_budget_bytes,
     )
     col_roots = engine.build_roots()
     tr.absorb_u64(params.DS_N_COLS, len(col_roots))
@@ -170,23 +205,28 @@ def prove_v1(
     z = params.derive_ood_point(tr)
     z = _nudge_off_coset(z, shift, lde_k_log2)
 
-    # ---- base composition + ZK masks (host) ----
-    comp = compose_all_rows(tc, alphas)
-    w_base_pows = ntt_host.powers(G.primitive_root_2exp(base_log2), n)
-    base_vals = G.add(comp, eval_masks_sum_at_points(mask_coeffs, w_base_pows))
-    stages.mark("host_compose")
-
-    # ---- DEEP coset LDE ----
+    # ---- base composition + ZK masks, then the DEEP coset LDE ----
     fri_eng = None
     lde_vals = None
-    if base_log2 >= lde_min_log2:
-        # one upload of the base evaluations; the LDE stays on the device
-        lde_dev = ntt_torch.deep_coset_lde(FT.pack(base_vals, device), blow_log2, shift, z)
-        fri_eng = DeviceFri(lde_dev)
+    if dc is not None:
+        base_dev = compose_device(dc, alphas, mask_coeffs, compose_scan_min_log2)
+        _release_planes_if_large(dc, release_planes_bytes)
+        stages.mark("device_compose")
+        fri_eng = DeviceFri(ntt_torch.deep_coset_lde(base_dev, blow_log2, shift, z))
+        del base_dev
     else:
-        lde_vals = _deep_lde_host(base_vals, blow_log2, shift, z)
-        if lde_k_log2 >= fri_min_log2:
-            fri_eng = DeviceFri(FT.pack(lde_vals, device))
+        comp = compose_all_rows(tc, alphas)
+        w_base_pows = ntt_host.powers(G.primitive_root_2exp(base_log2), n)
+        base_vals = G.add(comp, eval_masks_sum_at_points(mask_coeffs, w_base_pows))
+        stages.mark("host_compose")
+        if base_log2 >= lde_min_log2:
+            # one upload of the base evaluations; the LDE stays on the device
+            lde_dev = ntt_torch.deep_coset_lde(FT.pack(base_vals, device), blow_log2, shift, z)
+            fri_eng = DeviceFri(lde_dev)
+        else:
+            lde_vals = _deep_lde_host(base_vals, blow_log2, shift, z)
+            if lde_k_log2 >= fri_min_log2:
+                fri_eng = DeviceFri(FT.pack(lde_vals, device))
     stages.mark("lde")
 
     # ---- FRI commit: bind root0, betas, fold + bind roots ----
@@ -239,6 +279,9 @@ def prove_v1(
                 input_mv=next(opened),
             )
         )
+    if dc is not None:
+        # AIR openings done; free the matrix before the FRI gathers
+        _release_planes_if_large(dc, release_planes_bytes)
     stages.mark("air_openings")
 
     # ---- FRI queries ----

@@ -113,3 +113,98 @@ def test_columns_commit_and_chunk_paths_match_jax():
     assert np.array_equal(r_t, roots_j)
     for k in range(len(rows)):
         assert np.array_equal(r_t[k], croots_j[cols[k], rows[k] >> chunk_log2])
+
+
+def test_commit_from_planes_selection_and_roots_scan_match_resident_and_jax():
+    rng = np.random.default_rng(8)
+    chunk_log2 = 4
+    n = 256
+    vals = rng.integers(0, P, (5, n), dtype=np.uint64)
+    planes = FT.pack(vals)
+    # any prefix lengths in one call, rows picked by idx
+    lbs = ["head_1", "is_first", "mv_0", "input_mv"]
+    idx = [3, 0, 4, 1]
+    prefixes = [_prefix(lb) for lb in lbs]
+    cvs, roots = BT.columns_commit_from_planes(planes, prefixes, chunk_log2, idx=idx)
+    assert tuple(cvs.shape) == (4, 8, n) and tuple(roots.shape) == (4, 8, n >> chunk_log2)
+    croots = BT.croots_to_host(roots)
+    for i, (lb, row) in enumerate(zip(lbs, idx)):
+        leaves = M.hash_field_leaves_labeled(G.to_le_bytes(vals[row]), lb)
+        assert np.array_equal(BT.cv_planes_to_bytes(cvs[i]), leaves)
+        want = M.ColumnCommit.from_hashed_leaves(leaves, chunk_log2)
+        assert [bytes(r) for r in croots[i]] == [bytes(r) for r in want.chunk_roots]
+
+    for seg_log2 in (4, 6, 16):  # one chunk per segment, four, the whole column
+        scan = BT.columns_commit_roots_scan(planes, prefixes, chunk_log2, idx=idx, seg_log2=seg_log2)
+        assert torch.equal(scan, roots)
+
+    # the JAX functions, one prefix length per call as they require
+    same_len = [_prefix(lb) for lb in ("mv_0", "mv_1", "mv_2")]
+    lo = jnp.asarray((vals & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    hi = jnp.asarray((vals >> np.uint64(32)).astype(np.uint32))
+    jidx = np.array([4, 2, 0], np.int32)
+    _cvs_j, croots_j = BJ.columns_commit_from_planes(lo, hi, same_len, chunk_log2, idx=jidx)
+    scan_j = BJ.croots_to_host(np.asarray(
+        BJ.columns_commit_roots_scan(lo, hi, same_len, chunk_log2, idx=jidx, seg_log2=6)))
+    _, roots_t = BT.columns_commit_from_planes(planes, same_len, chunk_log2, idx=jidx)
+    scan_t = BT.columns_commit_roots_scan(planes, same_len, chunk_log2, idx=jidx, seg_log2=6)
+    assert np.array_equal(BT.croots_to_host(roots_t), croots_j)
+    assert np.array_equal(BT.croots_to_host(scan_t), scan_j)
+
+
+def test_chunk_paths_from_planes_and_ranges_match_resident_and_jax():
+    rng = np.random.default_rng(9)
+    chunk_log2 = 5
+    chunk = 1 << chunk_log2
+    n = 256
+    lbs = ["mv_0", "mv_1", "mv_2"]
+    prefixes = [_prefix(lb) for lb in lbs]
+    vals = rng.integers(0, P, (3, n), dtype=np.uint64)
+    planes = FT.pack(vals)
+    cvs, _ = BT.columns_commit_device(planes, prefixes, chunk_log2)
+
+    cols = np.array([0, 2, 1, 2, 0])
+    rows = np.array([3, 77, 255, 128, 64])
+    starts = (rows >> chunk_log2) << chunk_log2
+    idxs = rows - starts
+    req_prefixes = [prefixes[c] for c in cols]
+    want_paths, want_roots = BT.chunk_paths_device(cvs, cols, starts, idxs, chunk_log2)
+
+    paths, roots, opened = BT.chunk_paths_from_planes(
+        planes, cols, starts, idxs, req_prefixes, chunk_log2)
+    assert np.array_equal(paths, want_paths) and np.array_equal(roots, want_roots)
+    assert np.array_equal(opened, vals[cols, rows])
+
+    # ranges [S, C, chunk]: the distinct chunks of the requests
+    uniq, sel = np.unique(starts, return_inverse=True)
+    ranges = torch.stack([planes[:, s : s + chunk] for s in uniq])
+    paths_r, roots_r, opened_r = BT.chunk_paths_from_ranges(
+        ranges, sel, cols, idxs, req_prefixes, chunk_log2)
+    assert np.array_equal(paths_r, want_paths) and np.array_equal(roots_r, want_roots)
+    assert np.array_equal(opened_r, opened)
+
+    # requests under labels of different prefix lengths in one call
+    mixed = [_prefix(lb) for lb in ("input_mv", "head_7", "mv_0", "is_last", "head_7")]
+    paths_m, roots_m, _ = BT.chunk_paths_from_planes(planes, cols, starts, idxs, mixed, chunk_log2)
+    for k, lb in enumerate(("input_mv", "head_7", "mv_0", "is_last", "head_7")):
+        leaves = M.hash_field_leaves_labeled(
+            G.to_le_bytes(vals[cols[k], starts[k] : starts[k] + chunk]), lb)
+        tree = M.MerkleTree.from_leaves(leaves)
+        assert bytes(roots_m[k]) == tree.root()
+        assert [bytes(p) for p in paths_m[k]] == tree.open(int(idxs[k]))
+
+    # the JAX functions
+    lo = jnp.asarray((vals & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    hi = jnp.asarray((vals >> np.uint64(32)).astype(np.uint32))
+    out, finish = BJ.chunk_paths_from_planes(lo, hi, cols, starts, idxs, req_prefixes, chunk_log2)
+    paths_j, roots_j, vlo, vhi = finish(*(np.asarray(o) for o in out))
+    assert np.array_equal(paths, paths_j) and np.array_equal(roots, roots_j)
+    assert np.array_equal(opened, vlo.astype(np.uint64) | (vhi.astype(np.uint64) << np.uint64(32)))
+    rlo = jnp.stack([lo[:, s : s + chunk] for s in uniq])
+    rhi = jnp.stack([hi[:, s : s + chunk] for s in uniq])
+    out, finish = BJ.chunk_paths_from_ranges(rlo, rhi, sel, cols, idxs, req_prefixes, chunk_log2)
+    paths_j, roots_j, _, _ = finish(*(np.asarray(o) for o in out))
+    assert np.array_equal(paths_r, paths_j) and np.array_equal(roots_r, roots_j)
+
+    empty = BT.chunk_paths_from_planes(planes, [], [], [], [], chunk_log2)
+    assert empty[0].shape == (0, chunk_log2, 32) and empty[2].shape == (0,)

@@ -41,6 +41,7 @@ def test_port_files_found():
         "sezkp_tpu_torch/ops/blake3_torch.py",
         "sezkp_tpu_torch/ops/ntt_torch.py",
         "sezkp_tpu_torch/stark/v1/prover.py",
+        "sezkp_tpu_torch/stark/v1/columns_device.py",
         "sezkp_tpu_torch/convert.py",
     ):
         assert must in rel

@@ -1,6 +1,7 @@
 """Port NTT (plain versions of the phase kernels, on the CPU) vs the JAX
-package: the MXU kernels in interpret mode at 2^14, the host oracle at larger
-sizes, each phase against a direct per-axis DFT, and the DEEP coset LDE.
+package: the MXU kernels in interpret mode at 2^14, the roll-based four-step
+kernels in interpret mode below that, the host oracle at every size, each
+phase against a direct per-axis DFT, and the DEEP coset LDE.
 
 Tolerance: none -- field elements, exact equality."""
 
@@ -12,6 +13,7 @@ from sezkp_tpu.ops import goldilocks as G
 from sezkp_tpu.ops import ntt as N
 from sezkp_tpu.ops import ntt_jax
 from sezkp_tpu.ops import ntt_mxu
+from sezkp_tpu.ops import ntt_pallas
 from sezkp_tpu_torch.ops import goldilocks_torch as FT
 from sezkp_tpu_torch.ops import ntt_torch as NT
 
@@ -48,10 +50,56 @@ def test_matches_host_oracle(k, inverse):
 
 
 def test_small_sizes_plain_on_cpu_only():
+    """Below 2^MIN_LOG2 a CPU tensor goes through the plain versions of the
+    small-n kernels (K5 then K6), and no launch is counted."""
     a = _rand(1 << 8, 8)
+    before = (NT.small_cols.launches, NT.small_rows.launches)
     assert np.array_equal(NT.forward_ntt_u64(a, "cpu"), N.forward_ntt(a))
     assert np.array_equal(NT.inverse_ntt_u64(a, "cpu"), N.inverse_ntt(a))
+    assert (NT.small_cols.launches, NT.small_rows.launches) == before
     assert NT.MIN_LOG2 == ntt_mxu.MIN_LOG2
+    one = np.array([12345], dtype=np.uint64)
+    assert np.array_equal(NT.forward_ntt_u64(one, "cpu"), one)
+    assert np.array_equal(NT.inverse_ntt_u64(one, "cpu"), one)
+
+
+@pytest.mark.parametrize("k", range(1, 14))
+@pytest.mark.parametrize("inverse", [False, True])
+def test_small_plain_vs_pallas_interpret_and_host_oracle(k, inverse):
+    """small_cols_plain / small_rows_plain composed as the wrappers compose
+    them == the Pallas four-step kernels (interpret mode) == the host oracle."""
+    a = _rand(1 << k, 100 + k)
+    l1 = min(10, k // 2)
+    l2 = k - l1
+    tw = NT._twiddle_matrix(l1, l2, inverse, "cpu")
+    x = NT.small_cols_plain(FT.pack(a).reshape(1 << l1, 1 << l2), inverse, tw)
+    y = NT.small_rows_plain(x, inverse, scale=G.inv(1 << k) if inverse else 1)
+    assert tuple(y.shape) == (1 << l2, 1 << l1) and y.is_contiguous()
+    got = FT.unpack(y).reshape(-1)
+    if inverse:
+        assert np.array_equal(got, N.inverse_ntt(a))
+        assert np.array_equal(got, ntt_pallas.inverse_ntt_u64(a))
+        assert np.array_equal(NT.inverse_ntt_u64(a, "cpu"), got)
+    else:
+        assert np.array_equal(got, N.forward_ntt(a))
+        assert np.array_equal(got, ntt_pallas.forward_ntt_u64(a))
+        assert np.array_equal(NT.forward_ntt_u64(a, "cpu"), got)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_small_phases_plain_vs_direct_dft(inverse):
+    rng = np.random.default_rng(24)
+    n1, n2 = 8, 32
+    x = rng.integers(0, P, (n1, n2), dtype=np.uint64)
+    tw = rng.integers(0, P, (n1, n2), dtype=np.uint64)
+    scale = 987654321987654321 % P
+    got = NT.small_cols(FT.pack(x), inverse, FT.pack(tw))
+    assert np.array_equal(FT.unpack(got), G.mul(_dft_rows(x.T.copy(), inverse).T, tw))
+    got = NT.small_rows(FT.pack(x), inverse, scale=scale)
+    assert np.array_equal(FT.unpack(got), G.mul(_dft_rows(x, inverse), np.uint64(scale)).T)
+    # a factor of 1 is the identity transform (n = 2 has n1 = 1)
+    row = FT.pack(x[:1])
+    assert np.array_equal(FT.unpack(NT.small_cols(row, inverse, FT.pack(tw[:1]))), G.mul(x[:1], tw[:1]))
 
 
 def _dft_rows(x, inverse):
@@ -121,6 +169,10 @@ def test_phase_wrappers_count_no_launch_on_cpu():
     NT.phase_batched(x.reshape(2, 4, 8), False)
     NT.phase_last(x.reshape(2, 4, 8), False)
     assert (NT.phase_axis.launches, NT.phase_batched.launches, NT.phase_last.launches) == before
+    before = (NT.small_cols.launches, NT.small_rows.launches)
+    NT.small_cols(x, False, x)
+    NT.small_rows(x, False)
+    assert (NT.small_cols.launches, NT.small_rows.launches) == before
 
 
 def test_deep_coset_lde_matches_jax():

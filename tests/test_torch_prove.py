@@ -1,5 +1,6 @@
-"""The slice as a whole: the port's STARK v1 prove -> verify (on the CPU, with
-the device route forced by the size thresholds) vs the JAX package.
+"""The whole path: the port's STARK v1 prove -> verify on the CPU, on
+its device-resident route and on its host-columns route (with the device
+parts forced by the size thresholds), vs the JAX package.
 
 Tolerance: none -- proofs are compared byte for byte."""
 
@@ -30,10 +31,21 @@ from sezkp_tpu_torch.trace.partition import partition_trace
 from test_self_golden import V1_DIGEST
 from test_stark_v1 import MANIFEST, demo_blocks
 
-# every part of the prove takes the device route, whatever the size
-FORCE_DEVICE = dict(device_hash_min=0, lde_min_log2=0, fri_min_log2=0)
+# host-columns route: every other part of the prove takes the device route,
+# whatever the size
+FORCE_DEVICE = dict(device_cols_min=1 << 62, device_hash_min=0, lde_min_log2=0, fri_min_log2=0)
 # and none does (host numpy route of the same prover)
-FORCE_HOST = dict(device_hash_min=1 << 62, lde_min_log2=99, fri_min_log2=99)
+FORCE_HOST = dict(device_cols_min=1 << 62, device_hash_min=1 << 62, lde_min_log2=99, fri_min_log2=99)
+# device-resident route (columns derived on the device), whatever the size
+DEVICE_ROUTE = dict(device_cols_min=0)
+# the same with no memory to spare: roots-scan commit, openings from derived
+# ranges, composition slab by slab
+ZERO_BUDGETS = dict(device_cols_min=0, cv_budget_bytes=0, release_planes_bytes=0,
+                    compose_scan_min_log2=0)
+DEVICE_STAGES = {
+    "device_columns", "commit", "device_compose", "lde", "fri_commit",
+    "air_openings", "fri_openings",
+}
 
 FIELDS = (
     "version", "block_id", "step_lo", "step_hi", "ctrl_in", "ctrl_out",
@@ -75,6 +87,27 @@ def test_proof_bytes_equal_reference(case):
     assert proof_mod.encode_proof(case["proof"]) == ref_proof.encode_proof(case["ref"])
 
 
+def test_device_route_bytes_equal_reference_and_host_route(case):
+    blocks, man = case["blocks"], case["man"]
+    want = ref_proof.encode_proof(case["ref"])
+    timings = {}
+    dev = prove_v1(blocks, man.root, device="cpu", timings=timings)  # n >= 2^13: the default route
+    assert set(timings) == DEVICE_STAGES
+    assert proof_mod.encode_proof(dev) == want == proof_mod.encode_proof(case["proof"])
+    verify_v1(dev, blocks)
+    ref_verify_v1(ref_proof.decode_proof(proof_mod.encode_proof(dev)), case["ref_blocks"])
+
+
+def test_device_route_zero_budgets_give_the_same_bytes(case):
+    blocks, man = case["blocks"], case["man"]
+    want = proof_mod.encode_proof(case["proof"])
+    lean = prove_v1(blocks, man.root, device="cpu", **ZERO_BUDGETS)
+    assert proof_mod.encode_proof(lean) == want
+    # roots only, but the matrix stays: openings recomputed from it
+    mid = prove_v1(blocks, man.root, device="cpu", device_cols_min=0, cv_budget_bytes=0)
+    assert proof_mod.encode_proof(mid) == want
+
+
 def test_each_verifier_accepts_the_others_proof(case):
     port_bytes = proof_mod.encode_proof(case["proof"])
     ref_verify_v1(ref_proof.decode_proof(port_bytes), case["ref_blocks"])
@@ -102,7 +135,9 @@ def test_host_route_gives_the_same_bytes():
     a = StarkV1.prove(blocks, man.root, device="cpu", **FORCE_DEVICE)
     b = StarkV1.prove(blocks, man.root, device="cpu", **FORCE_HOST)
     c = StarkV1.prove(blocks, man.root, device="cpu")  # default thresholds: host route here
-    assert a.proof_bytes == b.proof_bytes == c.proof_bytes
+    d = StarkV1.prove(blocks, man.root, device="cpu", **DEVICE_ROUTE)
+    e = StarkV1.prove(blocks, man.root, device="cpu", **ZERO_BUDGETS)
+    assert a.proof_bytes == b.proof_bytes == c.proof_bytes == d.proof_bytes == e.proof_bytes
     assert a.meta == {"proto": "stark-v1", "domain_n": 1 << 15, "tau": 2}
     StarkV1.verify(a, blocks, man.root)
     with pytest.raises(ValueError):
@@ -118,6 +153,10 @@ def test_v1_digest_reproduced_on_device_route():
         "host_columns", "commit", "host_compose", "lde", "fri_commit",
         "air_openings", "fri_openings",
     }
+    timings = {}
+    art = StarkV1.prove(blocks, MANIFEST, device="cpu", timings=timings, **DEVICE_ROUTE)
+    assert ref_blake3.hash_bytes(art.proof_bytes).hex() == V1_DIGEST
+    assert set(timings) == DEVICE_STAGES
 
 
 def test_no_card_no_cpu_argument_raises():
