@@ -13,7 +13,12 @@ Phases (any failure ends the run with a non-zero exit code):
                 on the card, exact equality (tolerance 0: integer code), at
                 reduced and at main-path shapes; kernel, plain and bound times.
                 K5/K6 at every n = 2^1 .. 2^13 both ways, and the whole
-                transforms there against the host oracle.
+                transforms there against the host oracle. K2-K4 also at
+                three-factor shapes that the port's own factorisation never
+                picks (a last factor of 8 and of 32, a full-size phase-A
+                table). K7 at twelve message lengths from 1 to 1024 bytes and
+                batches from 1 to 1000003 messages, against its plain version
+                and against the host hasher.
   prove         T = 2^20, b = 512, tau = 8 on the device-resident route:
                 generate_trace -> partition_trace -> commit_blocks ->
                 StarkV1.prove (on the card) -> StarkV1.verify; a tampered
@@ -27,6 +32,24 @@ Phases (any failure ends the run with a non-zero exit code):
                 at T = 2^16 the proves with zero memory budgets (roots-scan
                 commit, recomputed and range-derived openings, slab-wise
                 composition) equal the resident prove.
+  fold          the fold line at T = 2^22, b = 64, tau = 2 (65536 blocks) and at
+                T = 2^20, b = 512, tau = 8 (2048 blocks): FoldBackend.prove in
+                balanced mode as a user calls it (batches from the default
+                threshold up hashed on the card through K7) and with every
+                batch on the host (device_hash_min=0), twice each in turns,
+                then with every batch on the card (device_hash_min=1); the
+                proof bytes must be equal, verify
+                accepts, two tampered proofs are rejected, K7's launch count is
+                > 0 over the device-hashed prove and 0 over the host-hashed
+                prove and over verify; wall and stage seconds of each. Then
+                the streamed prove of the smaller input into a temporary
+                .cborseq (verified, tampered copy rejected, same root).
+  crossover     the table behind the fold line's device-hash threshold: the
+                host's hash_many against hash_many_device end to end (upload,
+                padding and transposition on the card, K7, download) and the
+                device path's three parts, for four message lengths and eleven
+                batch sizes from 2^4 to 2^18, each the median of five runs; and
+                the batch size from which the card wins at every length.
   prove-large   only when asked for (--phases env,prove-large): T = 2^22
                 (LDE 2^25, the largest size the port proves so far),
                 device-resident route: two proves (byte-identical) + verify,
@@ -34,7 +57,10 @@ Phases (any failure ends the run with a non-zero exit code):
   sass          only when asked for (--phases env,sass): disassembles the
                 built kernels and a one-primitive probe and prints the
                 instruction counts, by issue pipe, that the operation bounds
-                of the kernels phase rest on; the text goes to chiprun_out/sass/.
+                of the kernels phase rest on, with a sha256 of each kernel's
+                instructions; the text goes to chiprun_out/sass/. With
+                --sass-csrc DIR (the ops/csrc of another checkout) it builds
+                those sources too and says which kernels are the same code.
 
 Output: progress lines, then one JSON line {"kernels": [...]} with one entry
 per kernel, then the card's name and power limit, then as the last line
@@ -90,7 +116,7 @@ def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> int:
     w = want[ne].cpu().numpy().view(bits).astype(np.uint64)
     return int(np.where(g > w, g - w, w - g).max())
 
-ALL_PHASES = ("env", "kernels", "prove", "parity-small")
+ALL_PHASES = ("env", "kernels", "prove", "parity-small", "fold", "crossover")
 # run only when asked for: the largest prove, and the disassembly that the
 # operation counts are read from
 EXTRA_PHASES = ("prove-large", "sass")
@@ -183,6 +209,7 @@ def _words_rand(n, gen, dev):
 def phase_kernels(state) -> None:
     from sezkp_tpu_torch.ops import blake3_torch as BT
     from sezkp_tpu_torch.ops import goldilocks as G
+    from sezkp_tpu_torch.ops import goldilocks_torch as FT
     from sezkp_tpu_torch.ops import ntt as ntt_host
     from sezkp_tpu_torch.ops import ntt_torch as NT
 
@@ -321,9 +348,6 @@ def phase_kernels(state) -> None:
     kern["ntt_phase_axis"]["replaces"] = "sezkp_tpu/ops/ntt_mxu.py:374"
     kern["ntt_phase_batched"]["replaces"] = "sezkp_tpu/ops/ntt_mxu.py:475"
     kern["ntt_phase_last"]["replaces"] = "sezkp_tpu/ops/ntt_mxu.py:540"
-    for name, e in errs.items():
-        kern[name]["max_abs_err"] = e
-
     # ---- K5/K6: the two phases of every n = 2^1 .. 2^13, both ways
     errs.update(ntt_small_cols=0, ntt_small_rows=0)
     for n_log2 in range(1, NT.MIN_LOG2):
@@ -378,6 +402,94 @@ def phase_kernels(state) -> None:
         fail("forward_ntt of one point")
     log("[kernels] K5/K6 == plain, and forward/inverse NTT == host oracle, at every n = 2^1 .. 2^13")
 
+    # ---- K2-K4 at three-factor shapes outside the port's own factorisation:
+    # a last factor below 128 (the JAX package's transposed-contraction
+    # branch), and phase A with one full-size table in place of the periodic
+    # one and the middle phase's ta
+    for (l1, l2, l3), inverse in (((7, 6, 3), False), ((7, 6, 3), True),
+                                  ((6, 7, 5), False), ((6, 7, 5), True)):
+        n_log2 = l1 + l2 + l3
+        n = 1 << n_log2
+        m1, m2, m3 = 1 << l1, 1 << l2, 1 << l3
+        inv_n = G.inv(n) if inverse else 1
+        a = _field_rand((n,), gen, dev)
+        ref = ntt_host.inverse_ntt(_to_u64(a)) if inverse else ntt_host.forward_ntt(_to_u64(a))
+        ta, tb = NT._t_outer(l1, l2, l3, inverse, dev)
+        tm = NT._t_mid(l2, l3, inverse, dev)
+        full = FT.mul(ta[:, :, None], tb[:, None, :]).reshape(m1, m2 * m3).contiguous()
+        x0 = a.reshape(m1, m2 * m3)
+        for what, tw, period, ta_mid in (("periodic table", tb, m3, ta), ("full-size table", full, None, None)):
+            what = f"factors ({m1}, {m2}, {m3}) inverse={inverse}, {what}"
+            x1 = NT.phase_axis(x0, 0, inverse, tw=tw, tw_period=period)
+            hold("ntt_phase_axis", x1, NT.phase_axis_plain(x0, 0, inverse, tw=tw, tw_period=period), what)
+            x1 = x1.reshape(m1, m2, m3)
+            x2 = NT.phase_batched(x1, inverse, ta=ta_mid, t=tm)
+            hold("ntt_phase_batched", x2, NT.phase_batched_plain(x1, inverse, ta=ta_mid, t=tm), what)
+            x3 = NT.phase_last(x2, inverse, scale=inv_n)
+            hold("ntt_phase_last", x3, NT.phase_last_plain(x2, inverse, scale=inv_n), what)
+            if not np.array_equal(_to_u64(x3).reshape(n), ref):
+                fail(f"three-phase NTT != host oracle at {what}")
+        log(f"[kernels] K2-K4 == plain and == host oracle at factors ({m1}, {m2}, {m3}) "
+            f"inverse={inverse}, periodic and full-size phase-A table")
+    for name in ("ntt_phase_axis", "ntt_phase_batched", "ntt_phase_last"):
+        kern[name]["max_abs_err"] = errs[name]
+
+    # ---- K7 blake3_chain
+    from sezkp_tpu_torch.crypto import blake3 as host_b3
+
+    rng = np.random.default_rng(77)
+    err7 = 0
+
+    def chain_case(n, length):
+        """K7 on n random messages of `length` bytes == plain version == host hasher."""
+        nonlocal err7
+        msgs = rng.integers(0, 256, (n, length), dtype=np.uint8)
+        planes = BT.messages_to_planes(msgs, dev)
+        got = BT.hash_many_words(planes, length)
+        want = BT.hash_many_words_plain(planes, length)
+        torch.cuda.synchronize()
+        err7 = max(err7, max_abs_diff(got, want))
+        if err7:
+            fail(f"K7 blake3_chain != plain at N={n} L={length}: max |difference| {err7}")
+        if not np.array_equal(BT.cv_planes_to_bytes(got), host_b3.hash_many(msgs)):
+            fail(f"K7 blake3_chain != host hash_many at N={n} L={length}")
+        return planes
+
+    lengths = (1, 55, 63, 64, 65, 124, 128, 129, 320, 813, 1023, 1024)
+    for length in lengths:
+        for n in (1, 29):
+            chain_case(n, length)
+    chain_case(1000003, 320)
+    timed = {}
+    # a boundary digest at tau = 2 and the leaf MAC transcript at 65536 blocks,
+    # and the fold/merge transcript at the top level of 2048 blocks
+    for length, n in ((813, 1 << 16), (320, 1 << 16), (677, 1 << 11)):
+        planes = chain_case(n, length)
+        nblocks = planes.shape[0] // 16
+        out = torch.empty((8, n), dtype=torch.int32, device=dev)
+        b_bytes = n * (64 * nblocks + 32) / HBM_BYTES_PER_S * 1e3
+        b_ops = ops_ms(n * nblocks, B3_OPS)
+        # ms: launches made one by one from Python, as the prover makes them;
+        # graph_ms: the same launches replayed from a CUDA graph
+        timed[length] = dict(
+            shape=f"int32 [{16 * nblocks}, {n}] -> [8, {n}], {length}-byte messages ({nblocks} blocks)",
+            ms=time_cuda(lambda: BT.hash_many_words(planes, length, out=out), 200),
+            graph_ms=time_cuda_graph(lambda: BT.hash_many_words(planes, length, out=out), 200),
+            plain_ms=time_cuda(lambda: BT.hash_many_words_plain(planes, length), 3),
+            bound_ms=max(b_bytes, b_ops), bound_by="bytes" if b_bytes >= b_ops else "operations",
+        )
+    kern["blake3_chain"] = dict(
+        name="blake3_chain", route="cuda",
+        source="sezkp_tpu_torch/ops/csrc/blake3_chain.cu",
+        replaces="sezkp_tpu/ops/blake3_pallas.py:219",
+        max_abs_err=err7, **timed[813], library_ms=None, at_320_bytes=timed[320],
+        at_2048_messages_of_677_bytes=timed[677],
+    )
+    log(f"[kernels] K7 blake3_chain == plain == host hash_many at L in {lengths}, N in (1, 29), "
+        f"N = 1000003 at L = 320, N = 2^16 at L = 813 and 320, N = 2^11 at L = 677; "
+        f"{timed[813]['ms']:.4f} ms issued from Python, {timed[813]['graph_ms']:.4f} ms "
+        f"replayed, at [208, 2^16]; {timed[677]['ms']:.4f} and {timed[677]['graph_ms']:.4f} at [176, 2^11]")
+
     # whole forward/inverse round trip at 2^23
     a = _field_rand((1 << 23,), gen, dev)
     back = NT.inverse_ntt(NT.forward_ntt(a))
@@ -403,13 +515,20 @@ def phase_kernels(state) -> None:
             lambda: NT.phase_axis(torch.zeros((8, 8), dtype=torch.int64, device=dev).T, 0, False))
     refuses(ValueError, "small_cols of a 1-D tensor",
             lambda: NT.small_cols(small, False, small))
+    zeros = torch.zeros((32, 8), dtype=torch.int32, device=dev)
+    refuses(ValueError, "hash_many_words of 0-byte messages",
+            lambda: BT.hash_many_words(zeros[:16], 0))
+    refuses(ValueError, "hash_many_words of 1025-byte messages",
+            lambda: BT.hash_many_words(torch.zeros((272, 8), dtype=torch.int32, device=dev), 1025))
+    refuses(ValueError, "hash_many_words of 32 planes for one block",
+            lambda: BT.hash_many_words(zeros, 64))
+    refuses(ValueError, "hash_many_words of a non-contiguous view",
+            lambda: BT.hash_many_words(zeros.t().contiguous().t()[:16], 64))
     log("[kernels] n = 2^10 on the card == host oracle; the wrappers refuse a wrong dtype, "
-        "a wrong rank and non-contiguous input")
+        "a wrong rank, non-contiguous input, and K7 a length outside 1..1024 and a wrong plane count")
 
     # the plain tensor steps of the DEEP glue and the FRI fold, which no
     # kernel covers (they are outside any kernel in the JAX package too)
-    from sezkp_tpu_torch.ops import goldilocks_torch as FT
-
     half = a.shape[0] // 2
     glue = {
         "pow_p_minus_2": time_cuda(lambda: FT.pow_p_minus_2(a), 1),
@@ -431,8 +550,15 @@ def _sass_functions(cuobjdump: str, binary: str):
     text = subprocess.run([cuobjdump, "-sass", binary], capture_output=True, text=True, check=True).stdout
     funcs = {}
     for chunk in text.split("Function : ")[1:]:
-        funcs[chunk.split()[0]] = [(int(a, 16), op, rest) for a, op, rest in _SASS_LINE.findall(chunk)]
+        # an anonymous namespace's name carries a hash of the file's path: dropped
+        name = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_", "_GLOBAL__N_", chunk.split()[0])
+        funcs[name] = [(int(a, 16), op, rest) for a, op, rest in _SASS_LINE.findall(chunk)]
     return text, funcs
+
+
+def _sass_sha(ins) -> str:
+    """sha256 of a function's instructions (address, opcode, operands), as text."""
+    return hashlib.sha256(repr(ins).encode()).hexdigest()
 
 
 def _pipe(op: str) -> str:
@@ -486,7 +612,8 @@ def phase_sass(state) -> None:
     for name, ins in funcs.items():
         hist = Counter(op for _, op, _ in ins)
         pipes = Counter(_pipe(op) for _, op, _ in ins)
-        out.append(f"== {name}: {len(ins)} instructions, imad-family {pipes['imad']}")
+        out.append(f"== {name}: {len(ins)} instructions, imad-family {pipes['imad']}, "
+                   f"sha256 {_sass_sha(ins)}")
         out.append("   all: " + json.dumps(hist.most_common()))
         for addr, op, rest in ins:
             m = re.search(r"0x([0-9a-f]+)\s*$", rest.strip())
@@ -502,6 +629,24 @@ def phase_sass(state) -> None:
             log("[sass] " + line)
     log("[sass] full text and loop histograms under chiprun_out/sass/")
 
+    # the same kernels built from another checkout's sources (--sass-csrc):
+    # which functions compile to the same machine code, instruction for instruction
+    other = state.get("sass_csrc")
+    if other:
+        for src in _kernels._SOURCES:
+            if not os.path.exists(os.path.join(other, src)):
+                log(f"[sass] {other} has no {src}")
+                continue
+            cubin = os.path.join(_kernels._BUILD_DIR, f"other_{src}.cubin")
+            subprocess.run([nvcc, *_kernels._NVCC_FLAGS[:-2], "-I", other, "-cubin",
+                            os.path.join(other, src), "-o", cubin],
+                           capture_output=True, text=True, check=True)
+            for name, ins in _sass_functions(cuobjdump, cubin)[1].items():
+                same = name in funcs and _sass_sha(ins) == _sass_sha(funcs[name])
+                log(f"[sass] {other}/{src} {name}: {len(ins)} instructions, sha256 {_sass_sha(ins)}: "
+                    + ("identical to this checkout's" if same else
+                       "DIFFERS from this checkout's" if name in funcs else "not in this checkout"))
+
 
 def _to_u64(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().contiguous().numpy().view(np.uint64)
@@ -513,6 +658,7 @@ def _wrappers():
 
     return {
         "blake3_compress": BT.compress,
+        "blake3_chain": BT.hash_many_words,
         "ntt_phase_axis": NT.phase_axis,
         "ntt_phase_batched": NT.phase_batched,
         "ntt_phase_last": NT.phase_last,
@@ -532,17 +678,19 @@ def _make_input(t: int, b: int, tau: int):
     return blocks, man, time.time() - t0
 
 
-def _tamper(art):
+def _tamper(art, pos=None):
+    """The artifact with one bit flipped at byte `pos` (default: the middle)."""
     from sezkp_tpu_torch.core.artifact import ProofArtifact
 
     pb = bytearray(art.proof_bytes)
-    pb[len(pb) // 2] ^= 0x01
+    pb[len(pb) // 2 if pos is None else pos] ^= 0x01
     return ProofArtifact(
         backend=art.backend, manifest_root=art.manifest_root, proof_bytes=bytes(pb), meta=art.meta
     )
 
 
 HOST_COLUMNS = dict(device_cols_min=1 << 62)  # the other route: columns and composition in numpy
+HOST_HASHED = dict(device_hash_min=0)  # the fold prove with every batch on the host hasher
 
 
 def _counted_prove(blocks, root, **options):
@@ -652,6 +800,182 @@ def phase_parity_small(state) -> None:
             f"(peak device memory {peak_lean} against {peak} bytes)")
 
 
+def _counted_fold_prove(blocks, root, **options):
+    """One balanced FoldBackend.prove with every kernel's launch count set to 0
+    just before and read just after: (artifact, wall s, stage s, launches)."""
+    from sezkp_tpu_torch.stark.backends import FoldBackend
+
+    wrappers = _wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    timings = {}
+    t0 = time.time()
+    art = FoldBackend.prove(blocks, root, timings=timings, **options)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    return art, wall, timings, {k: w.launches for k, w in wrappers.items()}
+
+
+def _median_ms(fn, reps: int = 5) -> float:
+    """Median host-clock milliseconds of fn() (which ends synchronised), after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[reps // 2] * 1e3
+
+
+CROSSOVER_N_LOG2 = (4, 5, 6, 7, 8, 9, 10, 12, 14, 16, 18)
+
+
+def phase_crossover(state) -> None:
+    """Host hash_many against hash_many_device end to end (upload, pad and
+    transpose on the card, K7, download) and the device path's three parts, each the
+    median of five runs on the host's clock."""
+    from sezkp_tpu_torch.crypto import blake3 as host_b3
+    from sezkp_tpu_torch.ops import blake3_torch as BT
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(99)
+    rows = []
+    for length in (71, 124, 320, 813):
+        for n_log2 in CROSSOVER_N_LOG2:
+            msgs = rng.integers(0, 256, (1 << n_log2, length), dtype=np.uint8)
+            if not np.array_equal(BT.hash_many_device(msgs), host_b3.hash_many(msgs)):
+                fail(f"hash_many_device != host hash_many at L={length} N=2^{n_log2}")
+
+            def upload():
+                planes = BT.messages_to_planes(msgs, dev)
+                torch.cuda.synchronize()
+                return planes
+
+            planes = upload()
+            out = torch.empty((8, 1 << n_log2), dtype=torch.int32, device=dev)
+
+            def kernel():
+                BT.hash_many_words(planes, length, out=out)
+                torch.cuda.synchronize()
+
+            row = dict(
+                L=length, N_log2=n_log2,
+                host_ms=_median_ms(lambda: host_b3.hash_many(msgs)),
+                device_ms=_median_ms(lambda: BT.hash_many_device(msgs)),
+                upload_pad_transpose_ms=_median_ms(upload),
+                kernel_sync_ms=_median_ms(kernel),
+                download_ms=_median_ms(lambda: BT.cv_planes_to_bytes(out)),
+            )
+            rows.append(row)
+            log("[crossover] " + json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
+                                                  for k, v in row.items()}))
+    # the smallest batch size from which the card won at every length and at
+    # every larger size measured: what fold/devhash.DEVICE_HASH_MIN rests on
+    wins = {n: all(r["device_ms"] < r["host_ms"] for r in rows if r["N_log2"] == n)
+            for n in CROSSOVER_N_LOG2}
+    from_log2 = next((n for i, n in enumerate(CROSSOVER_N_LOG2)
+                      if all(wins[m] for m in CROSSOVER_N_LOG2[i:])), None)
+    from sezkp_tpu_torch.fold.devhash import DEVICE_HASH_MIN
+
+    log(f"[crossover] the card wins at every length at N = 2^k for k in "
+        f"{[n for n in CROSSOVER_N_LOG2 if wins[n]]}; at every length and every larger size from "
+        f"N = {None if from_log2 is None else 1 << from_log2}; DEVICE_HASH_MIN is {DEVICE_HASH_MIN}")
+    state["crossover"] = rows
+
+
+def phase_fold(state) -> None:
+    import tempfile
+
+    from sezkp_tpu_torch.core.prover import StreamingProver
+    from sezkp_tpu_torch.fold.verify import verify_stream
+    from sezkp_tpu_torch.stark.backends import FoldBackend
+    from sezkp_tpu_torch.utils import cbor
+
+    log(f"[fold] CBOR codec: {'native extension' if cbor.native() is not None else 'pure Python'}")
+    wrappers = _wrappers()
+    state["launches_fold"] = {}
+    for t_log2, b, tau in ((22, 64, 2), (20, 512, 8)):
+        what = f"T = 2^{t_log2}, b = {b}, tau = {tau}"
+        blocks, man, t_in = _make_input(1 << t_log2, b, tau)
+        log(f"[fold] {what}: {len(blocks)} blocks, input made in {t_in:.1f} s")
+        arts = []
+        # in turns on one card: the call as a user makes it (the card, from
+        # the default threshold up), host, host, default, and every batch on the card
+        for options in ({}, HOST_HASHED, HOST_HASHED, {}, dict(device_hash_min=1)):
+            art, wall, timings, launches = _counted_fold_prove(blocks, man.root, **options)
+            where = ("host (device_hash_min=0)" if options is HOST_HASHED else
+                     "card (K7), every batch (device_hash_min=1)" if options else
+                     "card (K7), default call")
+            log(f"[fold] {what}: balanced prove, MAC batches hashed on the {where}: wall {wall:.2f} s; "
+                f"stages {_stages(timings)}; host assembly {timings['pipeline'] - timings['hash']:.3f} s; "
+                f"K7 launches {launches['blake3_chain']}; sha256 {_sha(art)}")
+            if options is not HOST_HASHED and launches["blake3_chain"] <= 0:
+                fail(f"{what}: the device-hashed prove never launched K7")
+            if options is HOST_HASHED and launches["blake3_chain"] != 0:
+                fail(f"{what}: the host-hashed prove launched K7")
+            if not arts:
+                # the count reported for this path is the first default prove's
+                state["launches_fold"][what] = launches["blake3_chain"]
+            arts.append(art)
+        if any(a.proof_bytes != arts[0].proof_bytes for a in arts):
+            fail(f"{what}: device-hashed and host-hashed proofs differ")
+        if arts[0].manifest_root != man.root:
+            fail(f"{what}: the fold root is not the manifest root")
+        log(f"[fold] {what}: five proofs byte-identical, {len(arts[0].proof_bytes)} bytes")
+
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.time()
+        FoldBackend.verify(arts[0], [], man.root)
+        log(f"[fold] {what}: verify OK in {time.time() - t0:.2f} s; "
+            f"K7 launches during verify {wrappers['blake3_chain'].launches}")
+        if wrappers["blake3_chain"].launches != 0:
+            fail(f"{what}: the verifier launched K7")
+        # one flipped bit in the middle of the bundle, and one in the root
+        # commitment that follows it in the envelope
+        for where, pos in (("the bundle", None), ("the envelope's root", -60)):
+            try:
+                FoldBackend.verify(_tamper(arts[0], pos), [], man.root)
+            except Exception as e:  # the verifier's rejection is what this step wants
+                log(f"[fold] {what}: proof tampered in {where} rejected: "
+                    f"{type(e).__name__}: {str(e)[:80]}")
+            else:
+                fail(f"{what}: a proof tampered in {where} was accepted")
+        del arts[1:]
+
+    # the streamed path, at the smaller input (the last one made above)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "proof.cborseq")
+        os.environ["SEZKP_PROOF_STREAM_PATH"] = path
+        for w in wrappers.values():
+            w.launches = 0
+        try:
+            sp = StreamingProver(FoldBackend)
+            t0 = time.time()
+            streamed = sp.prove_stream_iter(iter(blocks), man.root)
+            t1 = time.time()
+            sp.verify_stream_iter(streamed, iter(blocks), man.root)
+            t2 = time.time()
+        finally:
+            del os.environ["SEZKP_PROOF_STREAM_PATH"]
+        with open(path, "rb") as f:
+            data = bytearray(f.read())
+    if streamed.manifest_root != arts[0].manifest_root:
+        fail("the streamed prove's root differs from the batched prove's")
+    if wrappers["blake3_chain"].launches != 0:
+        fail("the streamed path launched K7")
+    data[len(data) // 2] ^= 0x01
+    try:
+        verify_stream(bytes(data))
+    except Exception as e:  # the verifier's rejection is what this step wants
+        log(f"[fold] tampered stream rejected: {type(e).__name__}: {str(e)[:80]}")
+    else:
+        fail("tampered stream was accepted")
+    log(f"[fold] {what}: streamed prove {t1 - t0:.2f} s into a {len(data)}-byte .cborseq, "
+        f"verify_stream OK in {t2 - t1:.2f} s, root equals the batched prove's; no K7 launch")
+
+
 def phase_prove_large(state) -> None:
     from sezkp_tpu_torch.stark.backends import StarkV1
 
@@ -676,6 +1000,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated subset of: " + ", ".join(ALL_PHASES + EXTRA_PHASES))
+    ap.add_argument("--sass-csrc", default=None,
+                    help="sass phase: the ops/csrc directory of another checkout to compare with")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
@@ -687,10 +1013,11 @@ def main() -> None:
               file=sys.stderr)
         sys.exit(2)
 
-    state = {}
+    state = {"sass_csrc": args.sass_csrc}
     t_start = time.time()
     run = {"env": phase_env, "kernels": phase_kernels, "prove": phase_prove,
-           "parity-small": phase_parity_small, "prove-large": phase_prove_large,
+           "parity-small": phase_parity_small, "fold": phase_fold,
+           "crossover": phase_crossover, "prove-large": phase_prove_large,
            "sass": phase_sass}
     if "env" not in phases:
         state["smi"] = nvidia_smi_line()
@@ -702,11 +1029,18 @@ def main() -> None:
     kernels = []
     for name, k in state.get("kernels", {}).items():
         k = dict(k)
-        # K1-K4: the count over the T = 2^20 prove; K5/K6, which only a base
-        # domain below 2^14 reaches: the count over the T = 2^13 prove. Null
-        # when that phase was not asked for.
-        counted = "launches_small" if name.startswith("ntt_small") else "launches"
-        k["launches"] = state[counted][name] if counted in state else None
+        # K1-K4: the count over the T = 2^20 STARK prove; K5/K6, which only a
+        # base domain below 2^14 reaches: the count over the T = 2^13 prove;
+        # K7: the count over the first default fold prove (65536
+        # blocks), with the count per fold input beside it. Null when that
+        # phase was not asked for.
+        if name == "blake3_chain":
+            per_input = state.get("launches_fold")
+            k["launches"] = next(iter(per_input.values())) if per_input else None
+            k["launches_by_input"] = per_input
+        else:
+            counted = "launches_small" if name.startswith("ntt_small") else "launches"
+            k["launches"] = state[counted][name] if counted in state else None
         kernels.append(k)
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,7 @@
 """sezkp_tpu_torch: the PyTorch/CUDA port of sezkp_tpu, for NVIDIA Hopper.
 
 The layout mirrors the JAX package module for module (core, crypto, commit,
-trace, ops, stark/v1, native). Nothing here imports jax or sezkp_tpu; the
+trace, ops, stark/v1, fold, sched, utils, native). Nothing here imports jax or sezkp_tpu; the
 jax-free host modules are this package's own copies.
 
 Entry points take ``device=None``, which means the CUDA card and raises when

@@ -29,27 +29,34 @@ _LIB_PATH = os.path.join(_BUILD_DIR, "libsezkp_blake3.so")
 _lib: Optional[ctypes.CDLL] = None
 
 
-def build_native() -> str:
-    """Compile this package's own native sources (native/blake3.cpp,
-    native/trace_gen.cpp) into _build/libsezkp_blake3.so and return the path.
+def compile_native(sources, lib_name: str, extra_flags=()) -> str:
+    """Compile sources of this package's native/ directory with g++ into
+    _build/<lib_name> (if it is not there yet) and return the path.
 
     Raises when the compiler is missing or fails. The library is written
     under a private name and renamed into place, so concurrent processes building it
     (several test workers on a fresh checkout) never load a partial file."""
-    if os.path.exists(_LIB_PATH):
-        return _LIB_PATH
+    path = os.path.join(_BUILD_DIR, lib_name)
+    if os.path.exists(path):
+        return path
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = os.path.join(_BUILD_DIR, f"libsezkp_blake3.{os.getpid()}.tmp.so")
+    stem, ext = os.path.splitext(lib_name)
+    tmp = os.path.join(_BUILD_DIR, f"{stem}.{os.getpid()}.tmp{ext}")
     cmd = [
         os.environ.get("CXX", "g++"),
         "-O3", "-fPIC", "-shared", "-std=c++17", "-march=native", "-fno-exceptions",
-        "-o", tmp,
-        os.path.join(_NATIVE_DIR, "blake3.cpp"),
-        os.path.join(_NATIVE_DIR, "trace_gen.cpp"),
+        *extra_flags, "-o", tmp,
+        *(os.path.join(_NATIVE_DIR, src) for src in sources),
     ]
     subprocess.run(cmd, check=True, capture_output=True, timeout=300)
-    os.replace(tmp, _LIB_PATH)
-    return _LIB_PATH
+    os.replace(tmp, path)
+    return path
+
+
+def build_native() -> str:
+    """Compile native/blake3.cpp and native/trace_gen.cpp into
+    _build/libsezkp_blake3.so and return the path."""
+    return compile_native(("blake3.cpp", "trace_gen.cpp"), os.path.basename(_LIB_PATH))
 
 
 def _load_native() -> Optional[ctypes.CDLL]:

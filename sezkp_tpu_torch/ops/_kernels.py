@@ -24,8 +24,8 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.abspath(
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "_build")
 )
-_SOURCES = ("blake3_compress.cu", "ntt_phases.cu", "ntt_small.cu")
-_HEADERS = ("goldilocks.cuh", "ntt_smem.cuh")
+_SOURCES = ("blake3_compress.cu", "blake3_chain.cu", "ntt_phases.cu", "ntt_small.cu")
+_HEADERS = ("blake3_round.cuh", "goldilocks.cuh", "ntt_smem.cuh")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -112,13 +112,14 @@ def lib() -> ctypes.CDLL:
     L = ctypes.CDLL(build())
     vp, ll, i, ull = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong
     L.sezkp_blake3_compress.argtypes = [vp, vp, ll, i, i, i, vp]
+    L.sezkp_blake3_chain.argtypes = [vp, vp, ll, i, i, vp]
     L.sezkp_ntt_phase_axis.argtypes = [vp, vp, i, ll, i, vp, vp, ll, ull, vp]
     L.sezkp_ntt_phase_batched.argtypes = [vp, vp, i, i, i, vp, vp, vp, vp]
     L.sezkp_ntt_phase_last.argtypes = [vp, vp, i, i, i, vp, ull, vp]
     L.sezkp_ntt_small_cols.argtypes = [vp, vp, i, i, vp, vp, vp]
     L.sezkp_ntt_small_rows.argtypes = [vp, vp, i, i, vp, ull, vp]
     for fn in (
-        L.sezkp_blake3_compress, L.sezkp_ntt_phase_axis,
+        L.sezkp_blake3_compress, L.sezkp_blake3_chain, L.sezkp_ntt_phase_axis,
         L.sezkp_ntt_phase_batched, L.sezkp_ntt_phase_last,
         L.sezkp_ntt_small_cols, L.sezkp_ntt_small_rows,
     ):
@@ -131,6 +132,20 @@ def check(rc: int, what: str) -> None:
     """Raise if a launch was refused (the C functions return cudaGetLastError)."""
     if rc != 0:
         raise RuntimeError(f"CUDA launch of {what} failed with cudaError {rc}")
+
+
+def resolve_device(device):
+    """None -> the CUDA card (raises without one); anything else as given."""
+    import torch
+
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "sezkp_tpu_torch runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
 
 
 def stream_ptr() -> int:

@@ -1,18 +1,22 @@
-"""Batched single-block BLAKE3 on torch tensors, and Merkle work built on it.
+"""Batched BLAKE3 on torch tensors, and Merkle work built on it.
 
-Counterpart of sezkp_tpu/ops/blake3_pallas.py (the compression kernel) and of
-the part of sezkp_tpu/ops/blake3_jax.py that the STARK v1 route runs: labeled
-leaf hashing, Merkle parent levels, whole-column commitments (with resident
-leaf CVs, or roots only) and in-chunk opening paths (from resident CVs, or
-recomputed from column values).
+Counterpart of sezkp_tpu/ops/blake3_pallas.py (the compression kernel and the
+single-chunk chain kernel) and of the parts of sezkp_tpu/ops/blake3_jax.py
+that the STARK v1 route and the fold line run: labeled leaf hashing, Merkle
+parent levels, whole-column commitments (with resident leaf CVs, or roots
+only), in-chunk opening paths (from resident CVs, or recomputed from column
+values), and the hash of a batch of equal-length messages of up to one chunk
+(1024 bytes).
 
-Every message here is at most 64 bytes: one BLAKE3 compression with flags
-CHUNK_START|CHUNK_END|ROOT and counter 0. Merkle parents are hashed that way
-too (a 64-byte message), not with BLAKE3's PARENT flag.
+On the STARK route every message is at most 64 bytes: one BLAKE3 compression
+with flags CHUNK_START|CHUNK_END|ROOT and counter 0. Merkle parents are hashed
+that way too (a 64-byte message), not with BLAKE3's PARENT flag. The fold
+line's MAC and digest messages take up to 16 blocks.
 
 Layouts. Message and digest words are ``torch.int32`` tensors holding u32 bit
-patterns, word-major ("planes"): messages ``[16, N]``, chaining values
-``[8, N]``. Field values are int64 tensors (see goldilocks_torch).
+patterns, word-major ("planes"): messages ``[16, N]`` (``[16 * nblocks, N]``
+for the chain), chaining values ``[8, N]``. Field values are int64 tensors
+(see goldilocks_torch).
 
 **Kernel K1 ``blake3_compress``** (csrc/blake3_compress.cu) replaces the
 Pallas kernel ``blake3_pallas._build``. :func:`compress` launches it for a
@@ -23,6 +27,14 @@ counting once, 232 xors, 224 funnel-shift rotates) against the integer rate;
 the integer rate is the nearer one, so the kernel keeps all 32 words in registers and
 does nothing else. The message assembly and the even/odd
 gather for parents stay plain tensor code around the kernel.
+
+**Kernel K7 ``blake3_chain``** (csrc/blake3_chain.cu) replaces the Pallas
+kernel ``blake3_pallas._build_chain``. :func:`hash_many_words` launches it for
+a CUDA tensor and runs :func:`hash_many_words_plain` only for a CPU tensor.
+Per message it reads 64 B per block once and writes 32 B; the chaining value
+stays in registers between blocks. The integer rate bounds it from two blocks
+up. :func:`hash_many_device` is the host-bytes entry around it: one upload,
+padding and word transposition on the device, the kernel, one download.
 """
 
 from __future__ import annotations
@@ -62,9 +74,10 @@ def _rotr(x, n: int):
     return ((x >> n) & ((1 << (32 - n)) - 1)) | (x << (32 - n))
 
 
-def compress_plain(m16: torch.Tensor, block_len: int, flags: int, out_words: int = 8):
+def compress_plain(m16: torch.Tensor, block_len: int, flags: int, out_words: int = 8, cv=None):
     """Plain PyTorch version of K1: int32 [16, N] -> int32 [out_words, N].
-    Wrapping int32 adds, masked shifts; the 7 rounds unrolled in Python."""
+    Wrapping int32 adds, masked shifts; the 7 rounds unrolled in Python.
+    `cv` is the input chaining value, int32 [8, N]; without it the IV."""
     assert m16.dtype == torch.int32 and m16.dim() == 2 and m16.shape[0] == 16
     n = m16.shape[1]
     msg = [m16[i] for i in range(16)]
@@ -72,7 +85,7 @@ def compress_plain(m16: torch.Tensor, block_len: int, flags: int, out_words: int
     def c(x):
         return torch.full((n,), _s32(x), dtype=torch.int32, device=m16.device)
 
-    v = [c(IV[j]) for j in range(8)] + [
+    v = ([c(IV[j]) for j in range(8)] if cv is None else [cv[j] for j in range(8)]) + [
         c(IV[0]), c(IV[1]), c(IV[2]), c(IV[3]), c(0), c(0), c(block_len), c(flags),
     ]
 
@@ -106,6 +119,20 @@ def compress_plain(m16: torch.Tensor, block_len: int, flags: int, out_words: int
 # --------------------------------- kernel ----------------------------------
 
 
+def _destination(out, words: int, m: torch.Tensor) -> torch.Tensor:
+    """The kernel's output tensor: `out` if it is a contiguous int32
+    [words, N] tensor on m's device (else an error), or a new one."""
+    n = m.shape[1]
+    if out is None:
+        return torch.empty((words, n), dtype=torch.int32, device=m.device)
+    if (
+        out.dtype != torch.int32 or tuple(out.shape) != (words, n)
+        or not out.is_contiguous() or out.device != m.device
+    ):
+        raise ValueError(f"out must be a contiguous int32 [{words}, N] tensor on the same device")
+    return out
+
+
 def compress(m16: torch.Tensor, block_len: int, flags: int, out_words: int = 8, out=None):
     """K1 wrapper: int32 [16, N] message planes -> int32 [out_words, N].
 
@@ -124,13 +151,7 @@ def compress(m16: torch.Tensor, block_len: int, flags: int, out_words: int = 8, 
         return res
     if not m16.is_contiguous():
         raise ValueError("compress takes a contiguous message tensor")
-    if out is None:
-        out = torch.empty((out_words, n), dtype=torch.int32, device=m16.device)
-    elif (
-        out.dtype != torch.int32 or tuple(out.shape) != (out_words, n)
-        or not out.is_contiguous() or out.device != m16.device
-    ):
-        raise ValueError("out must be a contiguous int32 [out_words, N] tensor on the same device")
+    out = _destination(out, out_words, m16)
     if n == 0:
         return out
     with torch.cuda.device(m16.device):
@@ -144,6 +165,96 @@ def compress(m16: torch.Tensor, block_len: int, flags: int, out_words: int = 8, 
 
 
 compress.launches = 0
+
+
+# ------------------- single-chunk messages of any length --------------------
+
+MAX_MSG_LEN = 1024  # one BLAKE3 chunk
+
+
+def _nblocks(msg_len: int) -> int:
+    if not 0 < msg_len <= MAX_MSG_LEN:
+        raise ValueError("single-chunk messages only: 0 < msg_len <= 1024")
+    return -(-msg_len // 64)
+
+
+def hash_many_words_plain(m: torch.Tensor, msg_len: int) -> torch.Tensor:
+    """Plain PyTorch version of K7: int32 [16 * nblocks, N] planes of the
+    zero-padded messages + their byte length -> int32 [8, N] digest words.
+    One compress_plain per block, the chaining value passed from block to block:
+    CHUNK_START on block 0, CHUNK_END|ROOT and the tail's length on the last,
+    length 64 on the others."""
+    nblocks = _nblocks(msg_len)
+    assert m.dtype == torch.int32 and m.dim() == 2 and m.shape[0] == 16 * nblocks
+    cv = None
+    for b in range(nblocks):
+        last = b == nblocks - 1
+        flags = (CHUNK_START if b == 0 else 0) | (CHUNK_END | ROOT if last else 0)
+        blen = msg_len - 64 * (nblocks - 1) if last else 64
+        cv = compress_plain(m[16 * b : 16 * b + 16], blen, flags, 8, cv=cv)
+    return cv
+
+
+def hash_many_words(m: torch.Tensor, msg_len: int, out=None) -> torch.Tensor:
+    """K7 wrapper: int32 [16 * ceil(msg_len / 64), N] message planes ->
+    int32 [8, N] digest words, 0 < msg_len <= 1024.
+
+    CUDA tensor: launches the kernel (or raises). CPU tensor: plain version.
+    `out` optionally names a contiguous [8, N] int32 destination."""
+    nblocks = _nblocks(msg_len)
+    if m.dtype != torch.int32 or m.dim() != 2 or m.shape[0] != 16 * nblocks:
+        raise ValueError(f"hash_many_words of {msg_len}-byte messages takes an int32 "
+                         f"[{16 * nblocks}, N] tensor")
+    n = m.shape[1]
+    if not m.is_cuda:
+        res = hash_many_words_plain(m, msg_len)
+        if out is not None:
+            out.copy_(res)
+            return out
+        return res
+    if not m.is_contiguous():
+        raise ValueError("hash_many_words takes a contiguous message tensor")
+    out = _destination(out, 8, m)
+    if n == 0:
+        return out
+    with torch.cuda.device(m.device):
+        rc = _kernels.lib().sezkp_blake3_chain(
+            m.data_ptr(), out.data_ptr(), n, nblocks, msg_len - 64 * (nblocks - 1),
+            _kernels.stream_ptr(),
+        )
+    _kernels.check(rc, "blake3_chain")
+    hash_many_words.launches += 1
+    return out
+
+
+hash_many_words.launches = 0
+
+
+def messages_to_planes(messages: np.ndarray, device) -> torch.Tensor:
+    """uint8 [N, L] messages (host) -> int32 [16 * nblocks, N] word planes on
+    `device`: one upload of the bytes as they are, then the zero-padding of
+    each row to whole blocks and the row-major -> word-major transposition on
+    the device (on the host both grow with the batch and cost more than the
+    hash). Words are little-endian."""
+    msgs = np.ascontiguousarray(messages, dtype=np.uint8)
+    n, length = msgs.shape
+    width = 64 * _nblocks(length)
+    rows = torch.from_numpy(msgs).to(device)
+    if length != width:
+        padded = torch.zeros((n, width), dtype=torch.uint8, device=rows.device)
+        padded[:, :length] = rows
+        rows = padded
+    return rows.view(torch.int32).t().contiguous()  # [N, 16 * nblocks] -> planes
+
+
+def hash_many_device(messages: np.ndarray, device=None) -> np.ndarray:
+    """Device counterpart of crypto.blake3.hash_many for a batch of
+    single-chunk messages: uint8 [N, L], 0 < L <= 1024 -> uint8 [N, 32].
+
+    `device=None` is the CUDA card and raises without one; "cpu" runs the
+    plain version. One upload, K7, one (synchronising) download."""
+    planes = messages_to_planes(messages, _kernels.resolve_device(device))
+    return cv_planes_to_bytes(hash_many_words(planes, messages.shape[1]))
 
 
 # ------------------------- leaves and parent levels -------------------------
@@ -195,8 +306,11 @@ def parent_level_planes(cv: torch.Tensor) -> torch.Tensor:
 def cv_planes_to_bytes(cv) -> np.ndarray:
     """int32 [8, N] CV planes (tensor or array) -> uint8 [N, 32] digests."""
     if isinstance(cv, torch.Tensor):
-        cv = cv.detach().cpu().numpy()
-    rows = np.ascontiguousarray(np.asarray(cv).T).astype("<u4", copy=False)
+        # transposed where the planes lie, so a device tensor comes down as rows
+        rows = cv.detach().t().contiguous().cpu().numpy()
+    else:
+        rows = np.ascontiguousarray(np.asarray(cv).T)
+    rows = rows.astype("<u4", copy=False)
     return rows.view(np.uint8).reshape(rows.shape[0], 32)
 
 

@@ -12,40 +12,13 @@
 // contiguous bytes per word. A ragged N is masked here, there is no padding
 // pass. Per message: 64 B read, 32 B (or 64 B) written, about 680 32-bit
 // integer instructions (three-input adds, funnel-shift rotates) -- on this
-// card the integer rate, not the memory, is the nearer bound.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// card the integer rate, not the memory, is the nearer bound. The rounds are
+// those of blake3_round.cuh, which K7 blake3_chain shares.
+#include "blake3_round.cuh"
 
 namespace {
 
-__device__ __forceinline__ uint32_t rotr(uint32_t x, int n) { return __funnelshift_r(x, x, n); }
-
-#define B3_G(a, b, c, d, mx, my) \
-  do {                           \
-    a = a + b + (mx);            \
-    d = rotr(d ^ a, 16);         \
-    c = c + d;                   \
-    b = rotr(b ^ c, 12);         \
-    a = a + b + (my);            \
-    d = rotr(d ^ a, 8);          \
-    c = c + d;                   \
-    b = rotr(b ^ c, 7);          \
-  } while (0)
-
-#define B3_ROUND(s0, s1, s2, s3, s4, s5, s6, s7, s8, s9, s10, s11, s12, s13, s14, s15) \
-  do {                                                                                  \
-    B3_G(v0, v4, v8, v12, m[s0], m[s1]);                                                \
-    B3_G(v1, v5, v9, v13, m[s2], m[s3]);                                                \
-    B3_G(v2, v6, v10, v14, m[s4], m[s5]);                                               \
-    B3_G(v3, v7, v11, v15, m[s6], m[s7]);                                               \
-    B3_G(v0, v5, v10, v15, m[s8], m[s9]);                                               \
-    B3_G(v1, v6, v11, v12, m[s10], m[s11]);                                             \
-    B3_G(v2, v7, v8, v13, m[s12], m[s13]);                                              \
-    B3_G(v3, v4, v9, v14, m[s14], m[s15]);                                              \
-  } while (0)
-
-constexpr uint32_t IV0 = 0x6A09E667u, IV1 = 0xBB67AE85u, IV2 = 0x3C6EF372u, IV3 = 0xA54FF53Au;
-constexpr uint32_t IV4 = 0x510E527Fu, IV5 = 0x9B05688Cu, IV6 = 0x1F83D9ABu, IV7 = 0x5BE0CD19u;
+using namespace b3;
 
 __global__ void __launch_bounds__(256)
 blake3_compress_kernel(const uint32_t* __restrict__ msg, uint32_t* __restrict__ out,
@@ -59,14 +32,7 @@ blake3_compress_kernel(const uint32_t* __restrict__ msg, uint32_t* __restrict__ 
   uint32_t v0 = IV0, v1 = IV1, v2 = IV2, v3 = IV3, v4 = IV4, v5 = IV5, v6 = IV6, v7 = IV7;
   uint32_t v8 = IV0, v9 = IV1, v10 = IV2, v11 = IV3, v12 = 0u, v13 = 0u, v14 = block_len, v15 = flags;
 
-  // message schedule: round r uses MSG_PERM applied r times to 0..15
-  B3_ROUND(0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15);
-  B3_ROUND(2, 6, 3, 10, 7, 0, 4, 13, 1, 11, 12, 5, 9, 14, 15, 8);
-  B3_ROUND(3, 4, 10, 12, 13, 2, 7, 14, 6, 5, 9, 0, 11, 15, 8, 1);
-  B3_ROUND(10, 7, 12, 9, 14, 3, 13, 15, 4, 0, 11, 2, 5, 8, 1, 6);
-  B3_ROUND(12, 13, 9, 11, 15, 10, 14, 8, 7, 2, 5, 3, 0, 1, 6, 4);
-  B3_ROUND(9, 14, 11, 5, 8, 12, 15, 1, 13, 3, 0, 10, 2, 6, 4, 7);
-  B3_ROUND(11, 15, 5, 0, 1, 9, 8, 6, 14, 10, 2, 12, 3, 4, 7, 13);
+  B3_SEVEN_ROUNDS();
 
   out[0 * n + i] = v0 ^ v8;
   out[1 * n + i] = v1 ^ v9;

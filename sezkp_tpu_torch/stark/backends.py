@@ -4,7 +4,8 @@ Mirrors crates/sezkp-stark/src/lib.rs:126-191: `StarkV1` serializes ProofV1
 with bincode into the artifact bytes; metadata is JSON. Counterpart of
 sezkp_tpu/stark/backends.py with an explicit device: `device=None` proves on
 the CUDA card and raises without one; the CPU runs only for device="cpu".
-Verification is host code.
+Verification is host code. The fold backend (fold/backend.py) is exported
+here too, so that every proving backend is found in one place.
 """
 
 from __future__ import annotations
@@ -13,11 +14,12 @@ from typing import Sequence
 
 from ..core.artifact import BackendKind, ProofArtifact
 from ..core.types import BlockSummary
+from ..fold.backend import FoldAgg, FoldBackend
 from .v1 import proof as proof_mod
 from .v1.prover import prove_v1
 from .v1.verify import verify_v1
 
-__all__ = ["StarkV1"]
+__all__ = ["FoldAgg", "FoldBackend", "StarkV1"]
 
 
 class StarkV1:

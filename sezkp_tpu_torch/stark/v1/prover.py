@@ -38,6 +38,7 @@ from ...ops import goldilocks as G
 from ...ops import goldilocks_torch as FT
 from ...ops import ntt as ntt_host
 from ...ops import ntt_torch
+from ...ops._kernels import resolve_device
 from . import params
 from .air import Alphas, compose_all_rows
 from .columns import TraceColumns
@@ -64,18 +65,6 @@ FRI_MIN_LOG2 = 14
 # 1.98 GB of T = 2^22 resident and lets go of what would crowd the LDE and
 # FRI layers of a larger trace on an 80 GB card.
 RELEASE_PLANES_BYTES = 8 << 30
-
-
-def resolve_device(device) -> torch.device:
-    """None -> the CUDA card (raises without one); anything else as given."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "sezkp_tpu_torch runs on a CUDA device by default and none is "
-                "available; pass device='cpu' to run on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _next_wrap(idx: int, n: int) -> int:

@@ -1,7 +1,12 @@
 """Port BLAKE3 (plain versions, on the CPU) vs the JAX package: the Pallas
-kernel in interpret mode, the staged XLA form, and the host hasher.
+kernels in interpret mode, the staged XLA form, and the host hasher.
 
-Tolerance: none -- digests and roots are compared byte for byte."""
+Tolerance: none -- digests and roots are compared byte for byte.
+
+The chain kernel of the JAX package is run in interpret mode only up to two
+blocks (L <= 128): XLA:CPU does not finish compiling its unrolled body at
+three blocks within minutes. Longer messages are held against the staged form
+and the host hasher."""
 
 import struct
 
@@ -16,7 +21,9 @@ from sezkp_tpu.ops import goldilocks as G
 from sezkp_tpu.stark.v1 import merkle as M
 from sezkp_tpu.stark.v1 import params
 from sezkp_tpu.stark.v1.columns import all_labels
+from sezkp_tpu.crypto import blake3 as host_blake3
 from sezkp_tpu_torch import convert
+from sezkp_tpu_torch.crypto import blake3 as port_blake3
 from sezkp_tpu_torch.ops import blake3_torch as BT
 from sezkp_tpu_torch.ops import goldilocks_torch as FT
 
@@ -208,3 +215,87 @@ def test_chunk_paths_from_planes_and_ranges_match_resident_and_jax():
 
     empty = BT.chunk_paths_from_planes(planes, [], [], [], [], chunk_log2)
     assert empty[0].shape == (0, chunk_log2, 32) and empty[2].shape == (0,)
+
+
+# ---------------- single-chunk messages of any length (K7's plain version) ---
+
+
+def _messages(n, length):
+    return np.random.default_rng(7000 * n + length).integers(0, 256, (n, length), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("n", [1, 29])
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 128])
+def test_chain_plain_matches_pallas_interpret(n, length):
+    msgs = _messages(n, length)
+    planes = BT.messages_to_planes(msgs, "cpu")
+    assert planes.shape == (16 * -(-length // 64), n) and planes.dtype == torch.int32
+    got = BT.hash_many_words_plain(planes, length)
+    pallas = np.asarray(
+        BP.hash_many_words(jnp.asarray(convert.planes_from_cvs(planes)), length, interpret=True)
+    )
+    assert np.array_equal(convert.planes_from_cvs(got), pallas)
+    assert np.array_equal(BT.cv_planes_to_bytes(got), host_blake3.hash_many(msgs))
+
+
+@pytest.mark.parametrize("n", [1, 29])
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 129, 320, 813, 1024])
+def test_chain_matches_staged_and_host(n, length):
+    msgs = _messages(n, length)
+    planes = BT.messages_to_planes(msgs, "cpu")
+    got = BT.cv_planes_to_bytes(BT.hash_many_words_plain(planes, length))
+    assert np.array_equal(got, BJ.hash_many_device(msgs))
+    assert np.array_equal(got, host_blake3.hash_many(msgs))
+    assert np.array_equal(got, port_blake3.hash_many(msgs))
+    # the host-bytes entry, and the wrapper on a CPU tensor with a destination
+    assert np.array_equal(BT.hash_many_device(msgs, device="cpu"), got)
+    out = torch.empty((8, n), dtype=torch.int32)
+    assert BT.hash_many_words(planes, length, out=out) is out
+    assert np.array_equal(BT.cv_planes_to_bytes(out), got)
+
+
+def test_chain_planes_are_the_reference_layout():
+    """messages_to_planes == the numpy pad / view / transpose of the JAX entry."""
+    msgs = _messages(5, 130)
+    padded = np.zeros((5, 192), dtype=np.uint8)
+    padded[:, :130] = msgs
+    want = np.ascontiguousarray(padded.view("<u4").T)
+    assert np.array_equal(convert.planes_from_cvs(BT.messages_to_planes(msgs, "cpu")), want)
+
+
+def test_chain_is_plain_on_cpu_and_counts_no_launch():
+    before = BT.hash_many_words.launches
+    planes = BT.messages_to_planes(_messages(3, 200), "cpu")
+    assert torch.equal(BT.hash_many_words(planes, 200), BT.hash_many_words_plain(planes, 200))
+    assert BT.hash_many_words.launches == before
+
+
+def test_compress_plain_takes_a_chaining_value():
+    """cv=None is the IV; a given cv is used as the first eight state words."""
+    m16 = convert.cvs_from_planes(np.random.default_rng(3).integers(0, 2**32, (16, 9), dtype=np.uint32))
+    iv = torch.tensor([BT._s32(w) for w in BT.IV], dtype=torch.int32)[:, None].expand(8, 9)
+    assert torch.equal(BT.compress_plain(m16, 64, 1, 8, cv=iv), BT.compress_plain(m16, 64, 1, 8))
+    assert not torch.equal(BT.compress_plain(m16, 64, 1, 8, cv=iv + 1), BT.compress_plain(m16, 64, 1, 8))
+
+
+@pytest.mark.parametrize(
+    "shape,length",
+    [((16, 4), 0), ((272, 4), 1025), ((16, 4), 65), ((32, 4), 64), ((4, 16), 64)],
+)
+def test_chain_wrapper_refuses(shape, length):
+    with pytest.raises(ValueError):
+        BT.hash_many_words(torch.zeros(shape, dtype=torch.int32), length)
+
+
+def test_chain_wrapper_refuses_wrong_dtype():
+    with pytest.raises(ValueError):
+        BT.hash_many_words(torch.zeros((16, 4), dtype=torch.int64), 64)
+
+
+def test_hash_many_device_default_device_is_the_card():
+    msgs = _messages(4, 100)
+    if torch.cuda.is_available():
+        assert np.array_equal(BT.hash_many_device(msgs), host_blake3.hash_many(msgs))
+    else:
+        with pytest.raises(RuntimeError):
+            BT.hash_many_device(msgs)

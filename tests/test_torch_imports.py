@@ -78,6 +78,8 @@ def test_import_is_inert():
         "from sezkp_tpu_torch.ops import _kernels\n"
         "assert _kernels._lib is None, 'kernel library loaded at import'\n"
         "assert sorted(glob.glob(built)) == before, 'kernels built at import'\n"
+        "from sezkp_tpu_torch.utils import cbor\n"
+        "assert cbor.native.cache_info().currsize == 0, 'CBOR extension loaded at import'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'sezkp_tpu')]\n"
         "assert not bad, bad\n"
         "print('inert', len(mods))\n"
