@@ -18,7 +18,11 @@ Phases (any failure ends the run with a non-zero exit code):
                 picks (a last factor of 8 and of 32, a full-size phase-A
                 table). K7 at twelve message lengths from 1 to 1024 bytes and
                 batches from 1 to 1000003 messages, against its plain version
-                and against the host hasher.
+                and against the host hasher. K8-K11 (the digit form of the NTT
+                phases on the tensor cores) at reduced shapes and at the
+                probes' shapes: K8 also against torch._int_mm, K10 with
+                elements in against K2 on the same input, the folded forward
+                NTT (K2, K3, K11) against forward_ntt at 2^20 and 2^23.
   prove         T = 2^20, b = 512, tau = 8 on the device-resident route:
                 generate_trace -> partition_trace -> commit_blocks ->
                 StarkV1.prove (on the card) -> StarkV1.verify; a tampered
@@ -38,7 +42,8 @@ Phases (any failure ends the run with a non-zero exit code):
                 threshold up hashed on the card through K7) and with every
                 batch on the host (device_hash_min=0), twice each in turns,
                 then with every batch on the card (device_hash_min=1); the
-                proof bytes must be equal, verify
+                (at 65536 blocks three proves: default, host, every batch);
+                the proof bytes must be equal, verify
                 accepts, two tampered proofs are rejected, K7's launch count is
                 > 0 over the device-hashed prove and 0 over the host-hashed
                 prove and over verify; wall and stage seconds of each. Then
@@ -50,6 +55,19 @@ Phases (any failure ends the run with a non-zero exit code):
                 device path's three parts, for four message lengths and eleven
                 batch sizes from 2^4 to 2^18, each the median of five runs; and
                 the batch size from which the card wins at every length.
+  probes        the four probe mains of sezkp_tpu_torch/probes at full width
+                (mxu_peak at its shapes; ntt_breakdown, twiddle_fold_ab and
+                profile_ntt at k = 23, the last with a torch.profiler trace
+                under chiprun_out/); each must find its equality check true;
+                the launch counts of K8-K11 over them are > 0.
+  cli           in a temporary directory, through sezkp_tpu_torch.cli.main with
+                no --device: simulate T = 2^20, b = 512, tau = 8 -> commit ->
+                verify-commit -> prove --backend stark -> verify; prove
+                --backend fold -> verify; prove --backend fold --stream
+                --fold-mode minram -> verify; a proof file with one flipped
+                byte is rejected; the proof bytes in the files equal those of
+                the in-process StarkV1.prove / FoldBackend.prove on the same
+                blocks and root, and so do the launch counts of K1-K7.
   prove-large   only when asked for (--phases env,prove-large): T = 2^22
                 (LDE 2^25, the largest size the port proves so far),
                 device-resident route: two proves (byte-identical) + verify,
@@ -83,12 +101,13 @@ from collections import Counter
 import numpy as np
 import torch
 
-# Peaks of one H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM; 67 TFLOP/s of
-# float32 outside the tensor cores, which is 128 lanes x 2 (FMA) per SM-clock.
+# Peaks of one H100 SXM (NVIDIA data sheet). The memory rate and the dense
+# int8 tensor-core rate stand once, in sezkp_tpu_torch/probes/_common.py, and
+# `_peaks()` reads them there. 67 TFLOP/s of float32 outside the tensor
+# cores is 128 lanes x 2 (FMA) per SM-clock.
 # 32-bit integer instructions issue on two pipes, the multiply-add pipe (the
 # IMAD family) and the ALU (IADD3, LOP3, SHF, ISETP, SEL ...), each with half
 # those lanes and no FMA doubling: a quarter of the float32 rate per pipe.
-HBM_BYTES_PER_S = 3.35e12
 INT_PIPE_OPS_PER_S = 67e12 / 4
 # Machine instructions (multiply-add pipe, ALU pipe) of the field primitives
 # and of one BLAKE3 compression, counted in the disassembly of this source
@@ -98,6 +117,13 @@ INT_PIPE_OPS_PER_S = 67e12 / 4
 # 232 LOP3 and 224 SHF. Indexing, loads and stores are not counted.
 GL_MUL_OPS, GL_ADD_OPS, GL_SUB_OPS = (13, 21), (3, 11), (1, 7)
 B3_OPS = (108, 572)
+
+
+def _peaks():
+    """(HBM bytes per second, dense int8 tensor-core operations per second)."""
+    from sezkp_tpu_torch.probes._common import HBM_BYTES_PER_S, INT8_PEAK_OPS
+
+    return HBM_BYTES_PER_S, INT8_PEAK_OPS
 
 
 def ops_ms(n: int, per_item) -> float:
@@ -116,7 +142,7 @@ def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> int:
     w = want[ne].cpu().numpy().view(bits).astype(np.uint64)
     return int(np.where(g > w, g - w, w - g).max())
 
-ALL_PHASES = ("env", "kernels", "prove", "parity-small", "fold", "crossover")
+ALL_PHASES = ("env", "kernels", "prove", "parity-small", "fold", "crossover", "probes", "cli")
 # run only when asked for: the largest prove, and the disassembly that the
 # operation counts are read from
 EXTRA_PHASES = ("prove-large", "sass")
@@ -242,7 +268,7 @@ def phase_kernels(state) -> None:
         fail(f"K1 blake3_compress != plain at N=2^23: max |difference| {err}")
     ms = time_cuda(lambda: BT.compress(m16, 8, BT.LEAF_FLAGS, 8, out=out), 20)
     plain_ms = time_cuda(lambda: BT.compress_plain(m16, 8, BT.LEAF_FLAGS, 8), 1)
-    b_bytes = n * (64 + 32) / HBM_BYTES_PER_S * 1e3
+    b_bytes = n * (64 + 32) / _peaks()[0] * 1e3
     b_ops = ops_ms(n, B3_OPS)
     kern["blake3_compress"] = dict(
         name="blake3_compress", route="cuda",
@@ -261,7 +287,7 @@ def phase_kernels(state) -> None:
         """A phase reads and writes each element once (16 B) and its tables
         once; an element takes m_log2 / 2 butterflies (mul, add, sub) and
         `twiddles` further multiplies."""
-        b_bytes = (16 * n_el + 8 * table_el) / HBM_BYTES_PER_S * 1e3
+        b_bytes = (16 * n_el + 8 * table_el) / _peaks()[0] * 1e3
         per_el = tuple(m_log2 * (mu + ad + su) / 2 + twiddles * mu
                        for mu, ad, su in zip(GL_MUL_OPS, GL_ADD_OPS, GL_SUB_OPS))
         b_ops = ops_ms(n_el, per_el)
@@ -467,7 +493,7 @@ def phase_kernels(state) -> None:
         planes = chain_case(n, length)
         nblocks = planes.shape[0] // 16
         out = torch.empty((8, n), dtype=torch.int32, device=dev)
-        b_bytes = n * (64 * nblocks + 32) / HBM_BYTES_PER_S * 1e3
+        b_bytes = n * (64 * nblocks + 32) / _peaks()[0] * 1e3
         b_ops = ops_ms(n * nblocks, B3_OPS)
         # ms: launches made one by one from Python, as the prover makes them;
         # graph_ms: the same launches replayed from a CUDA graph
@@ -527,6 +553,8 @@ def phase_kernels(state) -> None:
     log("[kernels] n = 2^10 on the card == host oracle; the wrappers refuse a wrong dtype, "
         "a wrong rank, non-contiguous input, and K7 a length outside 1..1024 and a wrong plane count")
 
+    _kernels_digit_form(kern, gen, dev)
+
     # the plain tensor steps of the DEEP glue and the FRI fold, which no
     # kernel covers (they are outside any kernel in the JAX package too)
     half = a.shape[0] // 2
@@ -540,6 +568,212 @@ def phase_kernels(state) -> None:
     log("[kernels] plain tensor glue at 2^23 elements (ms): "
         + json.dumps({k: round(v, 3) for k, v in glue.items()}))
     state["kernels"] = kern
+
+
+def _bound(nbytes: float, int8_ops: float):
+    """(bound ms, what sets it) of a tensor-core kernel: its bytes over the
+    memory rate against its int8 operations over the dense tensor-core rate."""
+    hbm, int8_peak = _peaks()
+    b_bytes = nbytes / hbm * 1e3
+    b_ops = int8_ops / int8_peak * 1e3
+    return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations")
+
+
+def _kernels_digit_form(kern, gen, dev) -> None:
+    """K8-K11 against their plain versions (exact), K8 against torch._int_mm,
+    K10 and the folded transform against the butterfly kernels; times at the
+    probes' shapes (one phase of n = 2^23: m = 256, other = 32768; K8 at the
+    2^24 phase of the probe script, m = 256 and 8 x 65536 columns)."""
+    from sezkp_tpu_torch.ops import goldilocks_torch as FT
+    from sezkp_tpu_torch.ops import ntt_digits_torch as ND
+    from sezkp_tpu_torch.ops import ntt_torch as NT
+    from sezkp_tpu_torch.probes._common import int_mm_sum as _int_mm_sum
+    from sezkp_tpu_torch.probes._common import rand_i8 as _rand_i8
+
+    errs = {"i8_gemm": 0, "gl_digits": 0, "digit_dft": 0, "digit_dft_last": 0}
+
+    def hold(name, got, want, what):
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or got.shape != want.shape:
+            fail(f"{name} at {what}: {got.dtype} {tuple(got.shape)} against {want.dtype} {tuple(want.shape)}")
+        if got.dtype == torch.int8:
+            got, want = got.to(torch.int32), want.to(torch.int32)
+        errs[name] = max(errs[name], max_abs_diff(got, want))
+        if errs[name]:
+            fail(f"{name} != its reference at {what}: max |difference| {errs[name]}")
+
+    def edge_field(shape):
+        x = _field_rand(shape, gen, dev)
+        x.view(-1)[2] = FT._i64(ND.MAX_BAL)
+        x.view(-1)[3] = FT._i64(ND.MAX_BAL + 1)
+        return x
+
+    # ---- K8 i8_gemm
+    for M, K, N, nrep in ((64, 64, 64, 1), (128, 192, 320, 3), (256, 256, 8 * 4096, 8), (1024, 1024, 4096, 1)):
+        w, x = _rand_i8((nrep * M, K), M + N, dev), _rand_i8((K, N), M + N + 1, dev)
+        for epilogue in ("int32", "and127"):
+            want = ND.i8_gemm_plain(w, x, nrep, epilogue)
+            for fuse in (False, True):
+                hold("i8_gemm", ND.i8_gemm(w, x, nrep, epilogue, fuse), want,
+                     f"M={M} K={K} N={N} nrep={nrep} {epilogue} fuse={fuse}")
+        hold("i8_gemm", ND.i8_gemm(w, x, nrep), _int_mm_sum(w, x, nrep), f"M={M} K={K} N={N} nrep={nrep} (torch._int_mm)")
+    # all -128: the sum passes 2^31 and must wrap, not saturate
+    w = torch.full((64 * 128, 1024), -128, dtype=torch.int8, device=dev)
+    x = torch.full((1024, 64), -128, dtype=torch.int8, device=dev)
+    hold("i8_gemm", ND.i8_gemm(w, x, 128), ND.i8_gemm_plain(w, x, 128), "the int32 wrap (sum = 2^31)")
+    if int(ND.i8_gemm(w, x, 128)[0, 0]) != -(1 << 31):
+        fail("i8_gemm: 2^31 did not wrap to -2^31")
+    m, nd, other = 256, ND.NDIG, 65536
+    w, x = _rand_i8((nd * m, m), 1, dev), _rand_i8((m, nd * other), 2, dev)
+    got = ND.i8_gemm(w, x, nd)
+    hold("i8_gemm", got, ND.i8_gemm_plain(w, x, nd), "the probe's shape")
+    hold("i8_gemm", got, _int_mm_sum(w, x, nd), "the probe's shape (torch._int_mm)")
+    hold("i8_gemm", ND.i8_gemm(w, x, nd, "int32", True), got, "the probe's shape, fused")
+    del got
+    macs = nd * m * m * nd * other
+    bnd, by = _bound(w.numel() + x.numel() + 4 * m * nd * other, 2 * macs)
+    kern["i8_gemm"] = dict(
+        name="i8_gemm", route="cuda", source="sezkp_tpu_torch/ops/csrc/i8_gemm.cu",
+        replaces="scripts/exp_mxu_peak.py:76", also_replaces=["scripts/exp_mxu_peak.py:105", "scripts/exp_mxu_peak.py:128"],
+        shape=f"int8 [{nd}*{m}, {m}] @ int8 [{m}, {nd}*{other}] -> int32 [{m}, {nd}*{other}], {nd} products summed",
+        ms=time_cuda(lambda: ND.i8_gemm(w, x, nd), 10),
+        fused_ms=time_cuda(lambda: ND.i8_gemm(w, x, nd, "int32", True), 10),
+        plain_ms=time_cuda(lambda: ND.i8_gemm_plain(w, x, nd), 1),
+        bound_ms=bnd, bound_by=by,
+        library_ms=time_cuda(lambda: _int_mm_sum(w, x, nd), 10),
+    )
+    del w, x
+    # the large square products of the probe, at 2^20 columns: both epilogues
+    # against the plain version on the same inputs (whole, not a slab of columns)
+    big = {}
+    for mm in (1024, 512):
+        w, x = _rand_i8((mm, mm), 5 + mm, dev), _rand_i8((mm, 1 << 20), 6 + mm, dev)
+        what = f"[{mm}, {mm}] @ [{mm}, 2^20]"
+        for epilogue in ("int32", "and127"):
+            hold("i8_gemm", ND.i8_gemm(w, x, 1, epilogue), ND.i8_gemm_plain(w, x, 1, epilogue), f"{what} {epilogue}")
+        hold("i8_gemm", ND.i8_gemm(w, x), torch._int_mm(w, x), what + " (torch._int_mm)")
+        # the int32 store writes 4 bytes per output, the `& 127` store one
+        ops = 2 * mm * mm * (1 << 20)
+        bnd, by = _bound(w.numel() + x.numel() + 4 * mm * (1 << 20), ops)
+        bnd8, by8 = _bound(w.numel() + x.numel() + mm * (1 << 20), ops)
+        big[f"at_{mm}x{mm}x2^20"] = dict(
+            ms=time_cuda(lambda: ND.i8_gemm(w, x), 5), bound_ms=bnd, bound_by=by,
+            and127_ms=time_cuda(lambda: ND.i8_gemm(w, x, 1, "and127"), 5), and127_bound_ms=bnd8, and127_bound_by=by8,
+            plain_ms=time_cuda(lambda: ND.i8_gemm_plain(w, x), 1),
+            library_ms=time_cuda(lambda: torch._int_mm(w, x), 5))
+        del w, x
+    kern["i8_gemm"].update(big)
+    torch.cuda.empty_cache()
+    log(f"[kernels] K8 i8_gemm == plain == torch._int_mm (both epilogues, both loop orders, the int32 wrap, the whole of [mm, mm] @ [mm, 2^20] at mm = 1024 and 512): "
+        f"{kern['i8_gemm']['ms']:.3f} ms ({kern['i8_gemm']['fused_ms']:.3f} fused) against "
+        f"{kern['i8_gemm']['library_ms']:.3f} ms of torch._int_mm at the probe's shape")
+
+    # ---- K9 gl_digits
+    for m, other in ((32, 32), (64, 160), (1024, 96), (256, 32768)):
+        a = edge_field((m, other))
+        planes = ND.digits_plain(a)
+        hold("gl_digits", ND.gl_digits(a), ND.stack_kmajor(planes), f"[{m}, {other}] k-major")
+        for tile in (32, other):
+            hold("gl_digits", ND.gl_digits(a, tile), ND.stack_tiled(planes, tile), f"[{m}, {other}] tile {tile}")
+    m, other = 256, 32768
+    n = m * other
+    bnd, by = _bound(16 * n, 0)
+    kern["gl_digits"] = dict(
+        name="gl_digits", route="cuda", source="sezkp_tpu_torch/ops/csrc/gl_digits.cu",
+        replaces="scripts/exp_ntt_breakdown.py:129",
+        shape=f"int64 [{m}, {other}] -> int8 [8, {other}, {m}] (k-major)",
+        ms=time_cuda(lambda: ND.gl_digits(a), 20), tiled_512_ms=time_cuda(lambda: ND.gl_digits(a, 512), 20),
+        plain_ms=time_cuda(lambda: ND.stack_kmajor(ND.digits_plain(a)), 2),
+        bound_ms=bnd, bound_by=by, library_ms=None,
+    )
+    log(f"[kernels] K9 gl_digits == plain in both layouts: {kern['gl_digits']['ms']:.3f} ms at [256, 32768]")
+
+    # ---- K10 digit_dft: against the plain version, and elements-in against K2
+    for m_log2, other, inverse in ((5, 32, False), (6, 48, True), (7, 128, False), (9, 64, True), (10, 32, False),
+                                   (8, 32768, False)):
+        m = 1 << m_log2
+        a = edge_field((m, other))
+        w = ND.w_digits(m_log2, inverse, 1, dev)
+        what = f"m={m} other={other} inverse={inverse}"
+        stack = ND.stack_kmajor(ND.digits_plain(a))
+        want = ND.digit_dft_plain(stack, w, "recombine")
+        hold("digit_dft", ND.digit_dft(stack, w, "recombine"), want, what + " stack in")
+        hold("digit_dft", ND.digit_dft(a, w, "recombine", elements=True), want, what + " elements in")
+        hold("digit_dft", ND.digit_dft(a, w, "recombine", elements=True), NT.phase_axis(a, 0, inverse), what + " (K2)")
+        hold("digit_dft", ND.digit_dft(stack, w, "sum"), ND.digit_dft_plain(stack, w, "sum"), what + " sum")
+    x8 = _rand_i8((ND.NDIG, other, m), 3, dev)
+    hold("digit_dft", ND.digit_dft(x8, w, "sum"), ND.digit_dft_plain(x8, w, "sum"), "random digit stack, sum")
+    hold("digit_dft", ND.digit_dft(x8, w, "recombine"), ND.digit_dft_plain(x8, w, "recombine"),
+         "random digit stack, recombine")
+    n = m * other
+    macs = ND.NDIG * ND.NDIG * m * n
+    bnd, by = _bound(8 * n + w.numel() + 8 * n, 2 * macs)
+    kern["digit_dft"] = dict(
+        name="digit_dft", route="cuda", source="sezkp_tpu_torch/ops/csrc/digit_dft.cu",
+        replaces="scripts/exp_ntt_breakdown.py:112", also_replaces=["scripts/exp_ntt_breakdown.py:92"],
+        shape=f"int8 digit stack [8, {other}, {m}] x table int8 [8*{m}, {m}] -> int64 [{m}, {other}], recombined",
+        ms=time_cuda(lambda: ND.digit_dft(x8, w, "recombine"), 10),
+        sum_ms=time_cuda(lambda: ND.digit_dft(x8, w, "sum"), 10),
+        elements_in_ms=time_cuda(lambda: ND.digit_dft(a, w, "recombine", elements=True), 10),
+        k2_same_input_ms=time_cuda(lambda: NT.phase_axis(a, 0, False), 10),
+        plain_ms=time_cuda(lambda: ND.digit_dft_plain(x8, w, "recombine"), 1),
+        bound_ms=bnd, bound_by=by, library_ms=None,
+    )
+    del x8, stack, want
+    log(f"[kernels] K10 digit_dft == plain (stack in, elements in, both epilogues) == K2: "
+        f"{kern['digit_dft']['ms']:.3f} ms against K2's {kern['digit_dft']['k2_same_input_ms']:.3f} ms at [256, 32768]")
+
+    # ---- K11 digit_dft_last and the folded transform
+    for (l2, l3, cols), inverse, scale in (((2, 5, 64), False, 1), ((3, 7, 16), True, 977), ((8, 8, 128), False, 1)):
+        m2, mc = 1 << l2, 1 << l3
+        x = edge_field((cols, m2 * mc))
+        wf = ND.folded_table(l2, l3, inverse, scale, dev)
+        want = ND.digit_dft_last_plain(x, wf)
+        hold("digit_dft_last", ND.digit_dft_last(x, wf), want, f"m2={m2} mc={mc} cols={cols}")
+        # the table built on the card (field products, K9) against the plain digits of the same products
+        cpu_table = ND.folded_table(l2, l3, inverse, scale, "cpu") if m2 * mc * mc <= 1 << 20 else None
+        if cpu_table is not None and not torch.equal(wf.cpu(), cpu_table):
+            fail("folded_table on the card != folded_table on the CPU")
+    n = cols * m2 * mc
+    bnd, by = _bound(8 * n + wf.numel() + 8 * n, 2 * ND.NDIG * ND.NDIG * mc * n)
+    kern["digit_dft_last"] = dict(
+        name="digit_dft_last", route="cuda", source="sezkp_tpu_torch/ops/csrc/digit_dft.cu",
+        replaces="scripts/ntt_twiddle_fold_ab.py:101",
+        shape=f"int64 [{cols}, {m2}*{mc}] x folded table int8 [{m2}, {mc}, 8, {mc}] -> int64 [{mc}, {m2}*{cols}]",
+        ms=time_cuda(lambda: ND.digit_dft_last(x, wf), 10),
+        plain_ms=time_cuda(lambda: ND.digit_dft_last_plain(x, wf), 1),
+        bound_ms=bnd, bound_by=by, library_ms=None,
+    )
+    del x, wf, want
+    for n_log2 in (18, 20, 23):
+        a = edge_field((1 << n_log2,))
+        hold("digit_dft_last", ND.forward_ntt_folded(a), NT.forward_ntt(a), f"forward_ntt_folded at 2^{n_log2}")
+    kern["digit_dft_last"]["folded_forward_2^23_ms"] = time_cuda(lambda: ND.forward_ntt_folded(a), 10)
+    kern["digit_dft_last"]["forward_2^23_ms"] = time_cuda(lambda: NT.forward_ntt(a), 10)
+    log(f"[kernels] K11 digit_dft_last == plain; forward_ntt_folded == forward_ntt at 2^18, 2^20, 2^23: "
+        f"{kern['digit_dft_last']['ms']:.3f} ms; whole transform {kern['digit_dft_last']['folded_forward_2^23_ms']:.3f} ms "
+        f"folded against {kern['digit_dft_last']['forward_2^23_ms']:.3f} ms")
+    for name, e in errs.items():
+        kern[name]["max_abs_err"] = e
+
+    def refuses(what, fn):
+        try:
+            fn()
+        except (ValueError, RuntimeError):
+            return
+        fail(f"{what}: expected a refusal")
+
+    z8 = torch.zeros((64, 64), dtype=torch.int8, device=dev)
+    z64 = torch.zeros((64, 64), dtype=torch.int64, device=dev)
+    refuses("i8_gemm of int64", lambda: ND.i8_gemm(z64, z64))
+    refuses("i8_gemm of 48 columns", lambda: ND.i8_gemm(z8, z8[:, :48].contiguous()))
+    refuses("gl_digits of 48 rows, k-major", lambda: ND.gl_digits(z64[:48].contiguous()))
+    refuses("digit_dft with m = 16", lambda: ND.digit_dft(z64[:16].contiguous(), ND.w_digits(4, False, 1, dev), elements=True))
+    refuses("digit_dft_last of a CPU table", lambda: ND.digit_dft_last(z64, torch.zeros((1, 64, 8, 64), dtype=torch.int8)))
+    log("[kernels] K8-K11 refuse a wrong dtype, shapes the kernels do not take, and operands on two devices")
+    # the digit tables (134 MB of folded table at 2^23) are no part of a prove:
+    # drop them, so that the prove phase's peak device memory is the prove's
+    ND._tables.clear()
 
 
 _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
@@ -650,6 +884,13 @@ def phase_sass(state) -> None:
 
 def _to_u64(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().contiguous().numpy().view(np.uint64)
+
+
+def _probe_wrappers():
+    from sezkp_tpu_torch.ops import ntt_digits_torch as ND
+
+    return {"i8_gemm": ND.i8_gemm, "gl_digits": ND.gl_digits, "digit_dft": ND.digit_dft,
+            "digit_dft_last": ND.digit_dft_last}
 
 
 def _wrappers():
@@ -902,7 +1143,10 @@ def phase_fold(state) -> None:
         arts = []
         # in turns on one card: the call as a user makes it (the card, from
         # the default threshold up), host, host, default, and every batch on the card
-        for options in ({}, HOST_HASHED, HOST_HASHED, {}, dict(device_hash_min=1)):
+        # at 65536 blocks once each: default, host, every batch on the card
+        turns = (({}, HOST_HASHED, dict(device_hash_min=1)) if len(blocks) > 2048 else
+                 ({}, HOST_HASHED, HOST_HASHED, {}, dict(device_hash_min=1)))
+        for options in turns:
             art, wall, timings, launches = _counted_fold_prove(blocks, man.root, **options)
             where = ("host (device_hash_min=0)" if options is HOST_HASHED else
                      "card (K7), every batch (device_hash_min=1)" if options else
@@ -922,7 +1166,7 @@ def phase_fold(state) -> None:
             fail(f"{what}: device-hashed and host-hashed proofs differ")
         if arts[0].manifest_root != man.root:
             fail(f"{what}: the fold root is not the manifest root")
-        log(f"[fold] {what}: five proofs byte-identical, {len(arts[0].proof_bytes)} bytes")
+        log(f"[fold] {what}: {len(arts)} proofs byte-identical, {len(arts[0].proof_bytes)} bytes")
 
         for w in wrappers.values():
             w.launches = 0
@@ -976,6 +1220,141 @@ def phase_fold(state) -> None:
         f"verify_stream OK in {t2 - t1:.2f} s, root equals the batched prove's; no K7 launch")
 
 
+def phase_probes(state) -> None:
+    """The four probe mains as a user runs them, on the card at full width.
+    Every kernel's launch count is set to 0 just before and read just after."""
+    from sezkp_tpu_torch.probes import mxu_peak, ntt_breakdown, profile_ntt, twiddle_fold_ab
+
+    wrappers = {**_wrappers(), **_probe_wrappers()}
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    trace_dir = os.path.join("chiprun_out", "trace_ntt")
+    for name, main, argv in (
+        ("mxu_peak", mxu_peak.main, []),
+        ("ntt_breakdown", ntt_breakdown.main, ["--k", "23", "--tile", "512"]),
+        ("twiddle_fold_ab", twiddle_fold_ab.main, ["--k", "23"]),
+        ("profile_ntt", profile_ntt.main, ["--k", "23", "--trace", trace_dir]),
+    ):
+        log(f"[probes] python -m sezkp_tpu_torch.probes.{name} {' '.join(argv)}")
+        t0 = time.time()
+        rc = main(argv)
+        torch.cuda.synchronize()
+        if rc != 0:
+            fail(f"probe {name} exited with {rc}")
+        log(f"[probes] {name} ok in {time.time() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    log(f"[probes] launches {json.dumps(launches)}")
+    for k in _probe_wrappers():
+        if launches[k] <= 0:
+            fail(f"kernel {k} was never launched by the probes")
+    state["launches_probes"] = launches
+
+
+def phase_cli(state) -> None:
+    """The command line end to end, as `python -m sezkp_tpu_torch` runs it (no
+    --device: the card), against the in-process backends on the same input."""
+    import tempfile
+
+    from sezkp_tpu_torch import cli
+    from sezkp_tpu_torch.commit.merkle import read_manifest_auto
+    from sezkp_tpu_torch.core import io as core_io
+    from sezkp_tpu_torch.stark.backends import FoldBackend
+
+    wrappers = _wrappers()
+
+    def run(argv, want_launches=None):
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.time()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        if rc not in (0, None):
+            fail(f"cli {' '.join(argv[:3])} returned {rc}")
+        launches = {k: w.launches for k, w in wrappers.items()}
+        log(f"[cli] {' '.join(argv[:3])}: {time.time() - t0:.2f} s; launches {json.dumps(launches)}")
+        return launches
+
+    def rejected(argv, what):
+        # a verifier rejects with ValueError (the CBOR decoder's and
+        # ReplayError are ValueErrors) or AssertionError, and a flipped byte
+        # that changes a field's type or key fails in the decoding of the
+        # artifact (TypeError, KeyError, IndexError). A missing file
+        # (OSError), a CUDA fault or any other crash is no rejection and
+        # ends the run
+        if not os.path.isfile(argv[-1]):
+            fail(f"{what}: {argv[-1]} was not written")
+        try:
+            cli.main(argv)
+        except (ValueError, AssertionError, TypeError, KeyError, IndexError) as e:
+            log(f"[cli] {what} rejected: {type(e).__name__}: {str(e)[:80]}")
+        else:
+            fail(f"{what} was accepted")
+
+    def flipped(path, out):
+        with open(path, "rb") as f:
+            data = bytearray(f.read())
+        data[len(data) // 2] ^= 0x40
+        with open(out, "wb") as f:
+            f.write(bytes(data))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        j = lambda name: os.path.join(tmp, name)
+        blocks_p, man_p = j("blocks.cbor"), j("manifest.cbor")
+        common = ["--blocks", blocks_p, "--manifest", man_p]
+        # after the STARK prove and verify have checked the blocks file against
+        # the manifest, the later commands skip that pass over the file
+        assumed = [*common, "--assume-committed"]
+        run(["simulate", "--t", str(1 << 20), "--b", "512", "--tau", "8", "--out-blocks", blocks_p])
+        run(["commit", "--blocks", blocks_p, "--out", man_p])
+        run(["verify-commit", "--blocks", blocks_p, "--manifest", man_p])
+
+        stark_launches = run(["prove", "--backend", "stark", *common, "--out", j("stark.cbor")])
+        run(["verify", "--backend", "stark", *common, "--proof", j("stark.cbor")])
+        flipped(j("stark.cbor"), j("stark_bad.cbor"))
+        rejected(["verify", "--backend", "stark", *assumed, "--proof", j("stark_bad.cbor")], "a flipped STARK proof file")
+
+        fold_launches = run(["prove", "--backend", "fold", *assumed, "--out", j("fold.cbor")])
+        run(["verify", "--backend", "fold", *assumed, "--proof", j("fold.cbor")])
+        flipped(j("fold.cbor"), j("fold_bad.cbor"))
+        rejected(["verify", "--backend", "fold", *assumed, "--proof", j("fold_bad.cbor")], "a flipped fold proof file")
+
+        stream_launches = run(["prove", "--backend", "fold", "--stream", "--fold-mode", "minram", *assumed,
+                               "--out", j("stream.cbor")])
+        run(["verify", "--backend", "fold", *assumed, "--proof", j("stream.cbor")])
+        flipped(j("stream.cborseq"), j("stream.cborseq"))
+        rejected(["verify", "--backend", "fold", *assumed, "--proof", j("stream.cbor")], "a flipped .cborseq stream")
+        if any(stream_launches.values()):
+            fail("the streamed minram prove launched a kernel")
+
+        # the same blocks and root through the backends in this process
+        blocks = core_io.read_block_summaries_auto(blocks_p)
+        root = read_manifest_auto(man_p).root
+        stark_file = core_io.read_proof_auto(j("stark.cbor"))
+        fold_file = core_io.read_proof_auto(j("fold.cbor"))
+    # the CLI set the fold mode for its last prove; the in-process prove is the balanced one
+    from sezkp_tpu_torch.utils.config import ENV_KEYS
+
+    for key in ENV_KEYS.values():
+        os.environ.pop(key, None)
+    art, _, _, launches, _ = _counted_prove(blocks, root)
+    if art.proof_bytes != stark_file.proof_bytes:
+        fail("the STARK proof in the file differs from the in-process StarkV1.prove")
+    if launches != stark_launches:
+        fail(f"launch counts of the CLI's STARK prove {stark_launches} differ from the in-process prove's {launches}")
+    log(f"[cli] STARK proof file == in-process StarkV1.prove, sha256 {_sha(art)}; same launch counts")
+    fart, _, _, flaunches = _counted_fold_prove(blocks, root)
+    if fart.proof_bytes != fold_file.proof_bytes:
+        fail("the fold proof in the file differs from the in-process FoldBackend.prove")
+    if flaunches != fold_launches:
+        fail(f"launch counts of the CLI's fold prove {fold_launches} differ from the in-process prove's {flaunches}")
+    FoldBackend.verify(fold_file, [], root)
+    log(f"[cli] fold proof file == in-process FoldBackend.prove, sha256 {_sha(fart)}; same launch counts "
+        f"(K7 {flaunches['blake3_chain']})")
+    state["launches_cli"] = {"stark": stark_launches, "fold": fold_launches}
+
+
 def phase_prove_large(state) -> None:
     from sezkp_tpu_torch.stark.backends import StarkV1
 
@@ -1017,7 +1396,8 @@ def main() -> None:
     t_start = time.time()
     run = {"env": phase_env, "kernels": phase_kernels, "prove": phase_prove,
            "parity-small": phase_parity_small, "fold": phase_fold,
-           "crossover": phase_crossover, "prove-large": phase_prove_large,
+           "crossover": phase_crossover, "probes": phase_probes, "cli": phase_cli,
+           "prove-large": phase_prove_large,
            "sass": phase_sass}
     if "env" not in phases:
         state["smi"] = nvidia_smi_line()
@@ -1032,9 +1412,11 @@ def main() -> None:
         # K1-K4: the count over the T = 2^20 STARK prove; K5/K6, which only a
         # base domain below 2^14 reaches: the count over the T = 2^13 prove;
         # K7: the count over the first default fold prove (65536
-        # blocks), with the count per fold input beside it. Null when that
-        # phase was not asked for.
-        if name == "blake3_chain":
+        # blocks), with the count per fold input beside it; K8-K11: the count
+        # over the probes phase. Null when that phase was not asked for.
+        if name in _probe_wrappers():
+            k["launches"] = state["launches_probes"][name] if "launches_probes" in state else None
+        elif name == "blake3_chain":
             per_input = state.get("launches_fold")
             k["launches"] = next(iter(per_input.values())) if per_input else None
             k["launches_by_input"] = per_input

@@ -5,7 +5,8 @@ backend. The streaming variants keep only the previous boundary FiniteState
 alive and push blocks into a backend stream.
 
 Backends are classes exposing:
-  prove(blocks, manifest_root) -> ProofArtifact
+  prove(blocks, manifest_root, **options) -> ProofArtifact
+    (options are the backend's own keywords, e.g. device, device_hash_min)
   verify(artifact, blocks, manifest_root) -> None (raises on failure)
 and optionally the streaming API:
   begin_stream(manifest_root) -> state
@@ -31,9 +32,13 @@ class StreamingProver:
 
     # ------------------------------ batch ----------------------------------
 
-    def prove(self, blocks: Sequence[BlockSummary], manifest_root: bytes) -> ProofArtifact:
+    def prove(
+        self, blocks: Sequence[BlockSummary], manifest_root: bytes, **options
+    ) -> ProofArtifact:
+        """`options` go to the backend's `prove` as keywords (the device and
+        the device-hash threshold of StarkV1 and FoldBackend)."""
         self.validate_blocks(blocks)
-        return self.backend.prove(blocks, manifest_root)
+        return self.backend.prove(blocks, manifest_root, **options)
 
     def verify(
         self, artifact: ProofArtifact, blocks: Sequence[BlockSummary], manifest_root: bytes

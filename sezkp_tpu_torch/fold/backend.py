@@ -21,16 +21,17 @@ from typing import Sequence
 from ..core.artifact import BackendKind, ProofArtifact
 from ..core.types import BlockSummary
 from ..utils import cbor
+from ..utils.config import ENV_KEYS
 from .api import Commitment, DriverOptions, FoldMode
 from .are import Pi
 from .devhash import DEVICE_HASH_MIN
 from .driver import CborSeqSink, FoldProofBundle, StreamDriverSink, run_pipeline
 from .verify import verify_bundle, verify_stream
 
-ENV_FOLD_MODE = "SEZKP_FOLD_MODE"
-ENV_FOLD_CACHE = "SEZKP_FOLD_CACHE"
-ENV_WRAP_CADENCE = "SEZKP_WRAP_CADENCE"
-ENV_PROOF_STREAM_PATH = "SEZKP_PROOF_STREAM_PATH"
+ENV_FOLD_MODE = ENV_KEYS["FOLD_MODE"]
+ENV_FOLD_CACHE = ENV_KEYS["FOLD_CACHE"]
+ENV_WRAP_CADENCE = ENV_KEYS["WRAP_CADENCE"]
+ENV_PROOF_STREAM_PATH = ENV_KEYS["PROOF_STREAM_PATH"]
 
 
 def opts_from_env(opts: DriverOptions | None = None) -> DriverOptions:

@@ -24,8 +24,11 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _BUILD_DIR = os.path.abspath(
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "_build")
 )
-_SOURCES = ("blake3_compress.cu", "blake3_chain.cu", "ntt_phases.cu", "ntt_small.cu")
-_HEADERS = ("blake3_round.cuh", "goldilocks.cuh", "ntt_smem.cuh")
+_SOURCES = (
+    "blake3_compress.cu", "blake3_chain.cu", "ntt_phases.cu", "ntt_small.cu",
+    "i8_gemm.cu", "gl_digits.cu", "digit_dft.cu",
+)
+_HEADERS = ("blake3_round.cuh", "goldilocks.cuh", "ntt_smem.cuh", "i8_mma.cuh")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -118,10 +121,15 @@ def lib() -> ctypes.CDLL:
     L.sezkp_ntt_phase_last.argtypes = [vp, vp, i, i, i, vp, ull, vp]
     L.sezkp_ntt_small_cols.argtypes = [vp, vp, i, i, vp, vp, vp]
     L.sezkp_ntt_small_rows.argtypes = [vp, vp, i, i, vp, ull, vp]
+    L.sezkp_i8_gemm.argtypes = [vp, vp, vp, i, i, ll, i, i, i, vp]
+    L.sezkp_gl_digits.argtypes = [vp, vp, ll, ll, ll, vp]
+    L.sezkp_digit_dft.argtypes = [vp, vp, vp, vp, i, ll, i, vp]
+    L.sezkp_digit_dft_last.argtypes = [vp, vp, vp, i, i, i, vp]
     for fn in (
         L.sezkp_blake3_compress, L.sezkp_blake3_chain, L.sezkp_ntt_phase_axis,
         L.sezkp_ntt_phase_batched, L.sezkp_ntt_phase_last,
         L.sezkp_ntt_small_cols, L.sezkp_ntt_small_rows,
+        L.sezkp_i8_gemm, L.sezkp_gl_digits, L.sezkp_digit_dft, L.sezkp_digit_dft_last,
     ):
         fn.restype = ctypes.c_int
     _lib = L

@@ -15,11 +15,12 @@ from typing import Sequence
 from ..core.artifact import BackendKind, ProofArtifact
 from ..core.types import BlockSummary
 from ..fold.backend import FoldAgg, FoldBackend
+from .v0 import StarkIOP
 from .v1 import proof as proof_mod
 from .v1.prover import prove_v1
 from .v1.verify import verify_v1
 
-__all__ = ["FoldAgg", "FoldBackend", "StarkV1"]
+__all__ = ["FoldAgg", "FoldBackend", "StarkIOP", "StarkV1"]
 
 
 class StarkV1:
