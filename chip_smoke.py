@@ -89,6 +89,7 @@ Without a CUDA device the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gzip
 import hashlib
 import json
 import os
@@ -117,6 +118,14 @@ INT_PIPE_OPS_PER_S = 67e12 / 4
 # 232 LOP3 and 224 SHF. Indexing, loads and stores are not counted.
 GL_MUL_OPS, GL_ADD_OPS, GL_SUB_OPS = (13, 21), (3, 11), (1, 7)
 B3_OPS = (108, 572)
+# The bound of K2/K3's design rests on these (ntt_torch.pass_counts), counted
+# the same way: gl::neg; gl::mul_pow2 with a constant exponent by shift range
+# (s <= 32: no bits above 95; 32 < s < 64; s >= 64: no bits below 64);
+# gl::bfly, (u + t, u - t); gl::mul_cc, the passes' general product.
+GL_NEG_OPS = (0, 6)
+GL_MULPOW2_OPS = {"lo": (4, 13), "mid": (6, 17), "hi": (7, 19)}
+GL_BFLY_OPS = (2, 10)
+GL_MULCC_OPS = (13, 18)
 
 
 def _peaks():
@@ -284,12 +293,29 @@ def phase_kernels(state) -> None:
 
     # ---- K2-K4: the phases of n = 2^14, 2^15 (two-factor), 2^17, 2^18, 2^20 inverse, 2^23 forward
     def bound(n_el, m_log2, twiddles, table_el):
-        """A phase reads and writes each element once (16 B) and its tables
+        """The radix-2 bound (K4's design, and K2/K3's first; their bound_radix2_ms):
+        a phase reads and writes each element once (16 B) and its tables
         once; an element takes m_log2 / 2 butterflies (mul, add, sub) and
         `twiddles` further multiplies."""
         b_bytes = (16 * n_el + 8 * table_el) / _peaks()[0] * 1e3
         per_el = tuple(m_log2 * (mu + ad + su) / 2 + twiddles * mu
                        for mu, ad, su in zip(GL_MUL_OPS, GL_ADD_OPS, GL_SUB_OPS))
+        b_ops = ops_ms(n_el, per_el)
+        return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations")
+
+    def bound_design(n_el, m_log2, inverse, twiddles, table_el):
+        """The bound of K2/K3's register-pass design: the same bytes; per
+        vector of length m the operations of its pass schedule
+        (ntt_torch.pass_counts: general products gl::mul_cc, the
+        butterflies gl::bfly, mul_pow2 by shift range, neg), plus `twiddles`
+        general products an element (the fused tables and the scale)."""
+        b_bytes = (16 * n_el + 8 * table_el) / _peaks()[0] * 1e3
+        c = NT.pass_counts(m_log2, inverse)
+        per_el = tuple(
+            (c.get("mul", 0) * GL_MULCC_OPS[i] + c.get("bfly", 0) * GL_BFLY_OPS[i] + c.get("neg", 0) * GL_NEG_OPS[i]
+             + sum(c.get("pow2_" + r, 0) * GL_MULPOW2_OPS[r][i] for r in GL_MULPOW2_OPS)) / (1 << m_log2)
+            + twiddles * GL_MULCC_OPS[i]
+            for i in (0, 1))
         b_ops = ops_ms(n_el, per_el)
         return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations")
 
@@ -301,6 +327,37 @@ def phase_kernels(state) -> None:
         if errs[name]:
             fail(f"{name} != plain at {what}: max |difference| {errs[name]}")
 
+    # K2 and K3 are compiled once per m and direction: every m = 2^1 .. 2^10
+    # both ways at a small batch, column and row counts that leave a ragged
+    # last tile. K2: axis 0 with no, a full and a periodic twiddle, and a
+    # scale; axis 1 with a twiddle and a scale. K3: with and without ta and t.
+    for m_log2 in range(1, 11):
+        m = 1 << m_log2
+        for inverse in (False, True):
+            what = f"m=2^{m_log2} inverse={inverse}"
+            scale = G.inv(m) if inverse else 977
+            x = _field_rand((m, 1056), gen, dev)
+            tw, twp = _field_rand((m, 1056), gen, dev), _field_rand((m, 32), gen, dev)
+            for kw, desc in ((dict(), "no twiddle"), (dict(tw=tw), "full twiddle"),
+                             (dict(tw=twp, tw_period=32), "periodic twiddle"), (dict(tw=tw, scale=scale), "full twiddle, scale")):
+                hold("ntt_phase_axis", NT.phase_axis(x, 0, inverse, **kw), NT.phase_axis_plain(x, 0, inverse, **kw),
+                     f"{what} axis 0 [{m}, 1056], {desc}")
+            x = _field_rand((1003, m), gen, dev)
+            tw = _field_rand((1003, m), gen, dev)
+            hold("ntt_phase_axis", NT.phase_axis(x, 1, inverse, tw=tw, scale=scale),
+                 NT.phase_axis_plain(x, 1, inverse, tw=tw, scale=scale), f"{what} axis 1 [1003, {m}], twiddle, scale")
+            hold("ntt_phase_axis", NT.phase_axis(x, 1, inverse), NT.phase_axis_plain(x, 1, inverse),
+                 f"{what} axis 1 [1003, {m}]")
+            x = _field_rand((3, m, 98), gen, dev)
+            ta, t = _field_rand((3, m), gen, dev), _field_rand((m, 98), gen, dev)
+            hold("ntt_phase_batched", NT.phase_batched(x, inverse, ta=ta, t=t),
+                 NT.phase_batched_plain(x, inverse, ta=ta, t=t), f"{what} [3, {m}, 98] ta, t")
+            hold("ntt_phase_batched", NT.phase_batched(x, inverse), NT.phase_batched_plain(x, inverse),
+                 f"{what} [3, {m}, 98]")
+    log("[kernels] K2 (axis 0: no, full, periodic twiddle, scale; axis 1) and K3 (with and without ta, t) "
+        "== plain at every m = 2^1 .. 2^10, both directions")
+
+    timed_2_20 = {}
     for n_log2, inverse in ((14, False), (14, True), (15, False), (15, True), (17, False), (17, True),
                             (18, False), (18, True), (20, True), (23, False)):
         n = 1 << n_log2
@@ -336,19 +393,23 @@ def phase_kernels(state) -> None:
             p3 = NT.phase_last_plain(x2, inverse, scale=inv_n)
             hold("ntt_phase_last", x3, p3, what)
             res = x3.reshape(n)
-            if main and n_log2 == 23:
-                # times at the largest main-path shape (the coset NTT of a T = 2^20 prove)
+            if main:
+                # times at the main-path shapes: the coset NTT (2^23) and the
+                # base inverse NTT (2^20) of a T = 2^20 prove. K4 is unchanged
+                # in this design: its time is the control for the card.
+                # K2/K3: bound_ms counts their design's operations,
+                # bound_radix2_ms the radix-2 count of their first design.
                 for name, fn, plain, shp, mlog, ntw, tab in (
                     ("ntt_phase_axis",
                      lambda: NT.phase_axis(x0, 0, inverse, tw=tb, tw_period=m3),
                      lambda: NT.phase_axis_plain(x0, 0, inverse, tw=tb, tw_period=m3),
                      f"int64 [{m1}, {m2 * m3}] axis 0, periodic twiddle [{m1}, {m3}]",
-                     l1, 1, m1 * m3 + m1 // 2),
+                     l1, 1, m1 * m3 + m1),
                     ("ntt_phase_batched",
                      lambda: NT.phase_batched(x1, inverse, ta=ta, t=tm),
                      lambda: NT.phase_batched_plain(x1, inverse, ta=ta, t=tm),
                      f"int64 [{m1}, {m2}, {m3}], ta [{m1}, {m2}], t [{m2}, {m3}]",
-                     l2, 2, m1 * m2 + m2 * m3 + m2 // 2),
+                     l2, 2, m1 * m2 + m2 * m3 + m2),
                     ("ntt_phase_last",
                      lambda: NT.phase_last(x2, inverse, scale=inv_n),
                      lambda: NT.phase_last_plain(x2, inverse, scale=inv_n),
@@ -357,12 +418,22 @@ def phase_kernels(state) -> None:
                 ):
                     ms = time_cuda(fn, 20)
                     plain_ms = time_cuda(plain, 1)
-                    bnd, by = bound(n, mlog, ntw, tab)
-                    kern[name] = dict(
-                        name=name, route="cuda", source="sezkp_tpu_torch/ops/csrc/ntt_phases.cu",
-                        shape=shp, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                        library_ms=None,
-                    )
+                    # graph_ms: the same launches replayed from a CUDA graph, without the
+                    # wrapper's host time (which exceeds the device time at 2^20)
+                    row = dict(shape=shp, ms=ms, graph_ms=time_cuda_graph(fn, 20), plain_ms=plain_ms)
+                    if name == "ntt_phase_last":
+                        row["bound_ms"], row["bound_by"] = bound(n, mlog, ntw, tab)
+                    else:
+                        row["bound_ms"], row["bound_by"] = bound_design(n, mlog, inverse, ntw, tab)
+                        row["bound_radix2_ms"] = bound(n, mlog, ntw, tab)[0]
+                    if n_log2 == 23:
+                        kern[name] = dict(name=name, route="cuda", source="sezkp_tpu_torch/ops/csrc/ntt_phases.cu",
+                                          **row, library_ms=None)
+                    else:
+                        timed_2_20[name] = row
+                log(f"[kernels] times at {what} (ms, issued / replayed): " + json.dumps(
+                    {k: (round(v["ms"], 4), round(v["graph_ms"], 4))
+                     for k, v in (kern if n_log2 == 23 else timed_2_20).items() if k.startswith("ntt_phase")}))
         # whole transform against the host oracle at the sizes numpy does quickly
         if n_log2 <= 18:
             ref = ntt_host.inverse_ntt(_to_u64(a)) if inverse else ntt_host.forward_ntt(_to_u64(a))
@@ -371,6 +442,8 @@ def phase_kernels(state) -> None:
         log(f"[kernels] NTT phases == plain at {what} (factors {logs})")
         del a, res
 
+    for name, row in timed_2_20.items():
+        kern[name]["at_2^20_inverse"] = row
     kern["ntt_phase_axis"]["replaces"] = "sezkp_tpu/ops/ntt_mxu.py:374"
     kern["ntt_phase_batched"]["replaces"] = "sezkp_tpu/ops/ntt_mxu.py:475"
     kern["ntt_phase_last"]["replaces"] = "sezkp_tpu/ops/ntt_mxu.py:540"
@@ -539,6 +612,15 @@ def phase_kernels(state) -> None:
             lambda: BT.compress(torch.zeros((16, 8), dtype=torch.int64, device=dev), 64, BT.LEAF_FLAGS))
     refuses(ValueError, "phase_axis of a non-contiguous view",
             lambda: NT.phase_axis(torch.zeros((8, 8), dtype=torch.int64, device=dev).T, 0, False))
+    refuses(ValueError, "phase_axis along axis 0 of an odd column count",
+            lambda: NT.phase_axis(torch.zeros((8, 7), dtype=torch.int64, device=dev), 0, False))
+    refuses(ValueError, "phase_axis with a tw_period of 3",
+            lambda: NT.phase_axis(torch.zeros((8, 6), dtype=torch.int64, device=dev), 0, False,
+                                  tw=torch.zeros((8, 3), dtype=torch.int64, device=dev), tw_period=3))
+    refuses(ValueError, "phase_axis of a tensor 8 bytes off a 16-byte boundary",
+            lambda: NT.phase_axis(torch.zeros(65, dtype=torch.int64, device=dev)[1:].view(8, 8), 0, False))
+    refuses(ValueError, "phase_batched of an odd column count",
+            lambda: NT.phase_batched(torch.zeros((2, 8, 5), dtype=torch.int64, device=dev), False))
     refuses(ValueError, "small_cols of a 1-D tensor",
             lambda: NT.small_cols(small, False, small))
     zeros = torch.zeros((32, 8), dtype=torch.int32, device=dev)
@@ -550,8 +632,14 @@ def phase_kernels(state) -> None:
             lambda: BT.hash_many_words(zeros, 64))
     refuses(ValueError, "hash_many_words of a non-contiguous view",
             lambda: BT.hash_many_words(zeros.t().contiguous().t()[:16], 64))
+    shifted = torch.empty((1 << 16) + 1, dtype=torch.int64, device=dev)[1:]
+    shifted.copy_(a[: 1 << 16])
+    if not torch.equal(NT.forward_ntt(shifted), NT.forward_ntt(a[: 1 << 16].clone())):
+        fail("forward_ntt of a tensor 8 bytes off a 16-byte boundary")
     log("[kernels] n = 2^10 on the card == host oracle; the wrappers refuse a wrong dtype, "
-        "a wrong rank, non-contiguous input, and K7 a length outside 1..1024 and a wrong plane count")
+        "a wrong rank, non-contiguous input, K2/K3 odd column counts, a tw_period that is no power of two "
+        "and misaligned tensors (forward_ntt realigns its input), and K7 a length outside 1..1024 "
+        "and a wrong plane count")
 
     _kernels_digit_form(kern, gen, dev)
 
@@ -577,6 +665,23 @@ def _bound(nbytes: float, int8_ops: float):
     b_bytes = nbytes / hbm * 1e3
     b_ops = int8_ops / int8_peak * 1e3
     return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations")
+
+
+def _int_mm_layouts(call, x, want, reps, what) -> dict:
+    """K8's library yardstick, `call(B)` (torch._int_mm), timed with B = x
+    row-major and with the same values column-major (x.t().contiguous().t(),
+    the layout cuBLASLt's int8 path takes natively); library_ms is the faster,
+    library_layout names it. Both results must equal K8's."""
+    xc = x.t().contiguous().t()
+    out = {}
+    for layout, xb in (("row-major B", x), ("column-major B", xc)):
+        if not torch.equal(call(xb), want):
+            fail(f"torch._int_mm with {layout} != K8 at {what}")
+        out[layout] = time_cuda(lambda: call(xb), reps)
+    del xc
+    best = min(out, key=out.get)
+    return dict(library_ms=out[best], library_layout=best,
+                library_row_major_ms=out["row-major B"], library_column_major_ms=out["column-major B"])
 
 
 def _kernels_digit_form(kern, gen, dev) -> None:
@@ -629,9 +734,9 @@ def _kernels_digit_form(kern, gen, dev) -> None:
     hold("i8_gemm", got, ND.i8_gemm_plain(w, x, nd), "the probe's shape")
     hold("i8_gemm", got, _int_mm_sum(w, x, nd), "the probe's shape (torch._int_mm)")
     hold("i8_gemm", ND.i8_gemm(w, x, nd, "int32", True), got, "the probe's shape, fused")
-    del got
     macs = nd * m * m * nd * other
     bnd, by = _bound(w.numel() + x.numel() + 4 * m * nd * other, 2 * macs)
+    lib = _int_mm_layouts(lambda xb: _int_mm_sum(w, xb, nd), x, got, 10, "the probe's shape")
     kern["i8_gemm"] = dict(
         name="i8_gemm", route="cuda", source="sezkp_tpu_torch/ops/csrc/i8_gemm.cu",
         replaces="scripts/exp_mxu_peak.py:76", also_replaces=["scripts/exp_mxu_peak.py:105", "scripts/exp_mxu_peak.py:128"],
@@ -639,10 +744,9 @@ def _kernels_digit_form(kern, gen, dev) -> None:
         ms=time_cuda(lambda: ND.i8_gemm(w, x, nd), 10),
         fused_ms=time_cuda(lambda: ND.i8_gemm(w, x, nd, "int32", True), 10),
         plain_ms=time_cuda(lambda: ND.i8_gemm_plain(w, x, nd), 1),
-        bound_ms=bnd, bound_by=by,
-        library_ms=time_cuda(lambda: _int_mm_sum(w, x, nd), 10),
+        bound_ms=bnd, bound_by=by, **lib,
     )
-    del w, x
+    del w, x, got
     # the large square products of the probe, at 2^20 columns: both epilogues
     # against the plain version on the same inputs (whole, not a slab of columns)
     big = {}
@@ -656,17 +760,21 @@ def _kernels_digit_form(kern, gen, dev) -> None:
         ops = 2 * mm * mm * (1 << 20)
         bnd, by = _bound(w.numel() + x.numel() + 4 * mm * (1 << 20), ops)
         bnd8, by8 = _bound(w.numel() + x.numel() + mm * (1 << 20), ops)
+        got = ND.i8_gemm(w, x)
         big[f"at_{mm}x{mm}x2^20"] = dict(
             ms=time_cuda(lambda: ND.i8_gemm(w, x), 5), bound_ms=bnd, bound_by=by,
             and127_ms=time_cuda(lambda: ND.i8_gemm(w, x, 1, "and127"), 5), and127_bound_ms=bnd8, and127_bound_by=by8,
             plain_ms=time_cuda(lambda: ND.i8_gemm_plain(w, x), 1),
-            library_ms=time_cuda(lambda: torch._int_mm(w, x), 5))
-        del w, x
+            **_int_mm_layouts(lambda xb: torch._int_mm(w, xb), x, got, 5, what))
+        del w, x, got
     kern["i8_gemm"].update(big)
     torch.cuda.empty_cache()
     log(f"[kernels] K8 i8_gemm == plain == torch._int_mm (both epilogues, both loop orders, the int32 wrap, the whole of [mm, mm] @ [mm, 2^20] at mm = 1024 and 512): "
         f"{kern['i8_gemm']['ms']:.3f} ms ({kern['i8_gemm']['fused_ms']:.3f} fused) against "
-        f"{kern['i8_gemm']['library_ms']:.3f} ms of torch._int_mm at the probe's shape")
+        f"{kern['i8_gemm']['library_ms']:.3f} ms of torch._int_mm ({kern['i8_gemm']['library_layout']}; "
+        f"row-major {kern['i8_gemm']['library_row_major_ms']:.3f}, column-major "
+        f"{kern['i8_gemm']['library_column_major_ms']:.3f}) at the probe's shape; at [1024, 1024] @ [1024, 2^20]: "
+        + json.dumps({k: round(v, 3) for k, v in big["at_1024x1024x2^20"].items() if k.startswith(("ms", "library_")) and isinstance(v, float)}))
 
     # ---- K9 gl_digits
     for m, other in ((32, 32), (64, 160), (1024, 96), (256, 32768)):
@@ -800,6 +908,25 @@ def _pipe(op: str) -> str:
     return "imad" if op.startswith(("IMAD", "UIMAD")) else "alu"
 
 
+def _unit(op: str) -> str:
+    """imad, memory (loads, stores, barriers), control, or alu: a kernel's instruction mix."""
+    if op.startswith(("IMAD", "UIMAD")):
+        return "imad"
+    if op.startswith(("LD", "ST", "ATOM", "RED", "BAR", "MEMBAR")):
+        return "mem"
+    if op.startswith(("BRA", "EXIT", "NOP", "BSSY", "BSYNC", "WARPSYNC", "CALL", "RET", "S2R", "S2UR", "CS2R")):
+        return "ctl"
+    return "alu"
+
+
+def _short(name: str) -> str:
+    """ntt_phase_axis_kernel<7,0,0> for a mangled K2/K3/K4 name; other names as they are."""
+    k = re.search(r"(ntt_phase_\w+?_kernel)(?:I((?:L[ib]\d+E)+)E)?", name)
+    if not k:
+        return name
+    return f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2) or ''))}>"
+
+
 def phase_sass(state) -> None:
     """Count the machine instructions that the operation bounds rest on.
 
@@ -826,27 +953,52 @@ def phase_sass(state) -> None:
     with open("chiprun_out/sass/gl_probe.sass", "w") as f:
         f.write(text)
     base = Counter(op for _, op, _ in probes["probe_base"])
-    counts = {}
-    for prim in ("mul", "add", "sub"):
+    counts, summary = {}, []
+    for prim in ("mul", "mul_cc", "add", "sub", "neg", "mul_pow2_lo", "mul_pow2_mid", "mul_pow2_hi", "bfly"):
         extra = Counter(op for _, op, _ in probes["probe_" + prim])
         extra.subtract(base)
-        extra["LOP3.LUT"] += base["LOP3.LUT"]  # the base's own xor is not indexing
+        if prim in ("mul", "mul_cc", "add", "sub"):
+            extra["LOP3.LUT"] += base["LOP3.LUT"]  # the base's own xor is not indexing
         extra = {op: c for op, c in extra.items() if c and op not in ("NOP", "BRA")}
         pipes = Counter()
         for op, c in extra.items():
             pipes[_pipe(op)] += c
         counts[prim] = dict(pipes)
-        log(f"[sass] gl::{prim}: {json.dumps(dict(pipes))} from {json.dumps(extra)}")
-    log("[sass] primitive counts: " + json.dumps(counts))
+        summary.append(f"gl::{prim}: {json.dumps(dict(pipes))} from {json.dumps(extra)}")
+    summary.append("primitive counts: " + json.dumps(counts))
+    pair = lambda prim: (counts[prim].get("imad", 0), counts[prim].get("alu", 0))
+    summary.append(f"as chip_smoke.py's constants: GL_MUL_OPS, GL_ADD_OPS, GL_SUB_OPS = "
+                   f"{pair('mul')}, {pair('add')}, {pair('sub')}; GL_NEG_OPS = {pair('neg')}; GL_MULPOW2_OPS = "
+                   + json.dumps({r: pair('mul_pow2_' + r) for r in ('lo', 'mid', 'hi')})
+                   + f"; GL_BFLY_OPS = {pair('bfly')}; GL_MULCC_OPS = {pair('mul_cc')}")
+
+    # registers, spills and shared memory of K2-K4's instantiations (ptxas)
+    obj = os.path.join(_kernels._BUILD_DIR, "ntt_phases_v.o")
+    ptxas = subprocess.run([nvcc, *_kernels._NVCC_FLAGS, "-Xptxas", "-v", "-I", _kernels._CSRC, "-c",
+                            os.path.join(_kernels._CSRC, "ntt_phases.cu"), "-o", obj],
+                           capture_output=True, text=True, check=True).stderr
+    with open("chiprun_out/sass/ptxas_ntt_phases.txt", "w") as f:
+        f.write(ptxas)
+    func, usage = None, {}
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            func = _short(m.group(1))
+        elif func and ("Used" in line or "spill" in line):
+            usage.setdefault(func, []).append(line.split("ptxas info    :")[-1].strip())
+    summary += [f"ptxas {f}: {' | '.join(u)}" for f, u in sorted(usage.items())]
 
     text, funcs = _sass_functions(cuobjdump, _kernels.build())
-    with open("chiprun_out/sass/kernels.sass", "w") as f:
+    # the unrolled K2/K3 instantiations make the text large: compressed
+    with gzip.open("chiprun_out/sass/kernels.sass.gz", "wt") as f:
         f.write(text)
     out = ["# " + " | ".join(ver)]
     for name, ins in funcs.items():
         hist = Counter(op for _, op, _ in ins)
         pipes = Counter(_pipe(op) for _, op, _ in ins)
-        out.append(f"== {name}: {len(ins)} instructions, imad-family {pipes['imad']}, "
+        units = Counter(_unit(op) for _, op, _ in ins)
+        out.append(f"== {_short(name)}: {len(ins)} instructions, imad-family {pipes['imad']}, "
+                   f"alu {units['alu']}, memory {units['mem']}, control {units['ctl']}, "
                    f"sha256 {_sass_sha(ins)}")
         out.append("   all: " + json.dumps(hist.most_common()))
         for addr, op, rest in ins:
@@ -861,7 +1013,9 @@ def phase_sass(state) -> None:
     for line in out:
         if line.startswith("=="):
             log("[sass] " + line)
-    log("[sass] full text and loop histograms under chiprun_out/sass/")
+    log("[sass] full text (gzip) and loop histograms under chiprun_out/sass/")
+    for line in summary:
+        log("[sass] " + line)
 
     # the same kernels built from another checkout's sources (--sass-csrc):
     # which functions compile to the same machine code, instruction for instruction

@@ -28,7 +28,7 @@ _SOURCES = (
     "blake3_compress.cu", "blake3_chain.cu", "ntt_phases.cu", "ntt_small.cu",
     "i8_gemm.cu", "gl_digits.cu", "digit_dft.cu",
 )
-_HEADERS = ("blake3_round.cuh", "goldilocks.cuh", "ntt_smem.cuh", "i8_mma.cuh")
+_HEADERS = ("blake3_round.cuh", "goldilocks.cuh", "ntt_smem.cuh", "ntt_reg.cuh", "i8_mma.cuh")
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -116,8 +116,8 @@ def lib() -> ctypes.CDLL:
     vp, ll, i, ull = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong
     L.sezkp_blake3_compress.argtypes = [vp, vp, ll, i, i, i, vp]
     L.sezkp_blake3_chain.argtypes = [vp, vp, ll, i, i, vp]
-    L.sezkp_ntt_phase_axis.argtypes = [vp, vp, i, ll, i, vp, vp, ll, ull, vp]
-    L.sezkp_ntt_phase_batched.argtypes = [vp, vp, i, i, i, vp, vp, vp, vp]
+    L.sezkp_ntt_phase_axis.argtypes = [vp, vp, i, ll, i, i, vp, vp, ll, ull, vp]
+    L.sezkp_ntt_phase_batched.argtypes = [vp, vp, i, i, i, i, vp, vp, vp, vp]
     L.sezkp_ntt_phase_last.argtypes = [vp, vp, i, i, i, vp, ull, vp]
     L.sezkp_ntt_small_cols.argtypes = [vp, vp, i, i, vp, vp, vp]
     L.sezkp_ntt_small_rows.argtypes = [vp, vp, i, i, vp, ull, vp]

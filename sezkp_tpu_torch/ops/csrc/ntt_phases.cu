@@ -7,104 +7,215 @@
 // Y[k] = sum_j X[j] w_m^(jk) along one axis of a 2-D or 3-D view, with the
 // inter-phase twiddle multiplies fused in -- but not the way it does: the
 // int8 digit split, the digit-pair matmuls and the diagonal recombine answer
-// a matrix unit without 64-bit integers. Here a thread block loads a tile of
-// length-m vectors into shared memory as u64, runs log2(m) radix-2 butterfly
-// stages there with __umul64hi-based modular multiplies, applies the
-// twiddles and stores. Each element is read once and written once per phase
-// (16 B) and takes log2(m)/2 butterflies of 56 integer instructions of field
-// arithmetic each (counted in the sm_90a disassembly; the index arithmetic of
-// the loop adds about 35 more); by those counts the integer rate is the
-// nearer bound on an H100, the memory rate the second. The tile shapes below keep global
-// loads and stores contiguous along the fastest axis.
+// a matrix unit without 64-bit integers. Each element is read once and
+// written once per phase (16 B), and the field arithmetic on it bounds the
+// kernels on an H100: integer instructions of the ALU pipe, at about twice
+// the time of the bytes (chip_smoke.py computes both bounds).
+//
+// K2 and K3 (this design) run the register-resident passes of ntt_reg.cuh,
+// templated on m = 2^L and the direction, so every index is a shift, a mask
+// or a constant: a thread holds 16 elements of each of its vectors, a
+// length-16 DFT takes no shared memory and no barrier, the vectors of a tile
+// exchange once through shared memory (twice for m = 512, 1024), and every
+// twiddle inside a length-16 DFT, and between passes up to w_64, is a power
+// of two (gl::mul_pow2: shifts, no 64-bit product). What is left of general
+// products (gl::mul_cc): the twiddles between passes from m = 128 up, the
+// fused tables (tw, ta, t) and the scale. The butterflies and the products'
+// folds take their borrows and carries from PTX carry chains (gl::bfly,
+// sub_pb, add_ce) instead of 64-bit compares and selects. What is left is
+// the ALU pipe's issue rate: at 2^23 about 117 (K2) and 130 (K3) ALU
+// instructions an element. K3 is held to 80 registers (three blocks an SM),
+// which hides its latencies better than 126 registers and two blocks; K2
+// gains nothing from it (probes/ntt_variants.py times both). Global loads and stores are 16 B
+// along the contiguous axis. Strided vectors (K2 axis 0, K3): a thread takes
+// two neighbouring columns, loads pass 1's inputs straight into registers
+// and stores the last pass's outputs straight to memory; the tile in shared
+// memory is [m][column pairs] of 16-B entries, which a quarter-warp reads as
+// 128 contiguous bytes, so without bank conflicts. Contiguous vectors (K2
+// axis 1): the tile is staged through shared memory (odd row pitch) in both
+// directions, one vector a thread; up to m = 16 a thread keeps a whole
+// vector and touches no shared memory.
+//
+// K4 keeps the first design (ntt_smem.cuh): a tile of vectors in shared
+// memory as u64, log2(m) radix-2 stages with a barrier each, modular
+// multiplies through __umul64hi, about 35 instructions of index arithmetic a
+// butterfly beside its 56 of field arithmetic.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ntt_reg.cuh"
 #include "ntt_smem.cuh"
 
 using namespace ntt_smem;
 
 namespace {
 
-// ---- K2: DFT along axis 0 of [m, other] (axis == 0) or along axis 1 of
-// [other, m] (axis == 1); then y *= tw (optional), y *= scale (if != 1).
-// axis 0: tw is [m, other] (tw_period == 0) or [m, tw_period], repeating
-// along the columns. axis 1: tw is [other, m] (full only).
-__global__ void __launch_bounds__(kThreads)
-ntt_phase_axis_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, int m_log2,
-                      long long other, int axis, int nvec, const uint64_t* __restrict__ wp_g,
-                      const uint64_t* __restrict__ tw, long long tw_period, uint64_t scale) {
-  extern __shared__ uint64_t smem[];
-  const int m = 1 << m_log2;
-  uint64_t* wp = smem;
-  uint64_t* s = smem + (m >> 1);
-  load_wp(wp, wp_g, m_log2);
-  const long long v0 = (long long)blockIdx.x * nvec;
-  const int total = m * nvec;
-  if (axis == 0) {
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int v = idx % nvec, j = idx / nvec;
-      s[bitrev(j, m_log2) * nvec + v] = x[(long long)j * other + v0 + v];
+using ntt_reg::Plan;
+using ntt_reg::static_for;
+
+__device__ __forceinline__ ulonglong2 ld16(const uint64_t* p) {
+  return __ldg(reinterpret_cast<const ulonglong2*>(p));
+}
+
+// One 16-byte store (a struct assignment may come out as two 8-byte stores).
+__device__ __forceinline__ void st16(uint64_t* p, uint64_t a, uint64_t b) {
+#ifdef __CUDA_ARCH__
+  asm volatile("st.global.v2.u64 [%0], {%1, %2};" ::"l"(p), "l"(a), "l"(b) : "memory");
+#else
+  *reinterpret_cast<ulonglong2*>(p) = make_ulonglong2(a, b);
+#endif
+}
+
+// ---- strided vectors: DFT along axis 0 of x [m, other] (other even), two
+// neighbouring columns a thread; y[k, c] = DFT * tw[k*tw_stride + (c & tw_mask)]
+// (if tw) * scale. pre: x[j, c] *= pre[j] before the DFT (if pre).
+template <int L, bool INV>
+__device__ __forceinline__ void cols_tile(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
+                                          long long other, const uint64_t* __restrict__ pre,
+                                          const uint64_t* __restrict__ pt, const uint64_t* __restrict__ tw,
+                                          long long tw_stride, long long tw_mask, uint64_t scale) {
+  using P = Plan<L>;
+  constexpr int E = P::E, T = P::T, CP = P::NT / T;
+  extern __shared__ __align__(16) unsigned char ntt_smem_raw[];
+  ulonglong2* sx = reinterpret_cast<ulonglong2*>(ntt_smem_raw);  // [m][CP]
+  const int cp = threadIdx.x % CP, t = threadIdx.x / CP;
+  const long long c = ((long long)blockIdx.x * CP + cp) * 2;
+  const bool live = c < other;
+  uint64_t a[2][E];
+  const uint64_t* xt = x + t * other + c;
+  static_for<E>([&](auto j1) {
+    constexpr int j = decltype(j1)::value;
+    ulonglong2 v = make_ulonglong2(0, 0);
+    if (live) v = ld16(xt + j * T * other);
+    if (pre) {
+      const uint64_t w = __ldg(pre + j * T + t);
+      v.x = gl::mul_cc(v.x, w);
+      v.y = gl::mul_cc(v.y, w);
     }
-    __syncthreads();
-    smem_ntt<true>(s, wp, m_log2, nvec, nvec, 1);
-    const long long tstride = tw_period ? tw_period : other;
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int v = idx % nvec, k = idx / nvec;
-      uint64_t val = s[k * nvec + v];
-      const long long c = v0 + v;
-      if (tw) val = gl::mul(val, tw[(long long)k * tstride + (tw_period ? c % tw_period : c)]);
-      if (scale != 1) val = gl::mul(val, scale);
-      y[(long long)k * other + c] = val;
+    a[0][j] = v.x;
+    a[1][j] = v.y;
+  });
+  const uint64_t* twc = tw + (c & tw_mask);
+  ntt_reg::run_passes<L, INV, false>(
+      a, t, pt,
+      [&](int pos, auto q) { sx[pos * CP + cp] = make_ulonglong2(a[0][q], a[1][q]); },
+      [&](int pos, auto q) {
+        const ulonglong2 v = sx[pos * CP + cp];
+        a[0][q] = v.x;
+        a[1][q] = v.y;
+      },
+      [&](int k, auto q) {
+        if (!live) return;
+        uint64_t v0 = a[0][q], v1 = a[1][q];
+        if (tw) {
+          const ulonglong2 w = ld16(twc + k * tw_stride);
+          v0 = gl::mul_cc(v0, w.x);
+          v1 = gl::mul_cc(v1, w.y);
+        }
+        if (scale != 1) {
+          v0 = gl::mul_cc(v0, scale);
+          v1 = gl::mul_cc(v1, scale);
+        }
+        st16(y + k * other + c, v0, v1);
+      });
+}
+
+// ---- contiguous vectors: DFT along axis 1 of x [other, m], one vector a
+// thread; y[v, k] = DFT * tw[v, k] (if tw) * scale.
+template <int L, bool INV>
+__device__ __forceinline__ void rows_tile(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
+                                          long long other, const uint64_t* __restrict__ pt,
+                                          const uint64_t* __restrict__ tw, uint64_t scale) {
+  using P = Plan<L>;
+  constexpr int m = 1 << L, E = P::E, T = P::T, V = P::NT / T;
+  const int v = threadIdx.x % V, t = threadIdx.x / V;
+  const long long v0 = (long long)blockIdx.x * V;
+  auto tail = [&](long long row, int k, uint64_t& e0, uint64_t& e1) {
+    if (tw) {
+      const ulonglong2 w = ld16(tw + row * m + k);
+      e0 = gl::mul_cc(e0, w.x);
+      e1 = gl::mul_cc(e1, w.y);
     }
+    if (scale != 1) {
+      e0 = gl::mul_cc(e0, scale);
+      e1 = gl::mul_cc(e1, scale);
+    }
+  };
+  if constexpr (T == 1) {
+    // m <= 16: the whole vector in registers, no shared memory
+    const long long row = v0 + v;
+    if (row >= other) return;
+    uint64_t a[1][E];
+    static_for<E / 2>([&](auto q) {
+      const ulonglong2 w = ld16(x + row * m + 2 * decltype(q)::value);
+      a[0][2 * decltype(q)::value] = w.x;
+      a[0][2 * decltype(q)::value + 1] = w.y;
+    });
+    ntt_reg::run_passes<L, INV, false>(a, 0, pt, [](int, auto) {}, [](int, auto) {}, [](int, auto) {});
+    static_for<E / 2>([&](auto q) {
+      constexpr int k = 2 * decltype(q)::value;
+      uint64_t e0 = a[0][k], e1 = a[0][k + 1];
+      tail(row, k, e0, e1);
+      st16(y + row * m + k, e0, e1);
+    });
   } else {
-    const int sv = m + 1;  // odd row stride: rows start in different banks
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int j = idx % m, v = idx / m;
-      s[v * sv + bitrev(j, m_log2)] = x[(v0 + v) * m + j];
+    constexpr int pitch = m + 1;  // odd: the rows of a half-warp's 16 vectors start in different banks
+    extern __shared__ __align__(16) unsigned char ntt_smem_raw[];
+    uint64_t* sr = reinterpret_cast<uint64_t*>(ntt_smem_raw);  // [V][pitch]
+    for (int i = threadIdx.x; i < V * m / 2; i += P::NT) {
+      const int r = i / (m / 2), k = 2 * (i % (m / 2));
+      if (v0 + r < other) {
+        const ulonglong2 w = ld16(x + (v0 + r) * m + k);
+        sr[r * pitch + k] = w.x;
+        sr[r * pitch + k + 1] = w.y;
+      }
     }
     __syncthreads();
-    smem_ntt<false>(s, wp, m_log2, nvec, 1, sv);
-    for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-      const int k = idx % m, v = idx / m;
-      uint64_t val = s[v * sv + k];
-      const long long off = (v0 + v) * m + k;
-      if (tw) val = gl::mul(val, tw[off]);
-      if (scale != 1) val = gl::mul(val, scale);
-      y[off] = val;
+    uint64_t* s = sr + v * pitch;
+    uint64_t a[1][E];
+    static_for<E>([&](auto j1) { a[0][decltype(j1)::value] = s[decltype(j1)::value * T + t]; });
+    ntt_reg::run_passes<L, INV, true>(
+        a, t, pt, [&](int pos, auto q) { s[pos] = a[0][q]; }, [&](int pos, auto q) { a[0][q] = s[pos]; },
+        [&](int k, auto q) { s[k] = a[0][q]; });
+    __syncthreads();
+    for (int i = threadIdx.x; i < V * m / 2; i += P::NT) {
+      const int r = i / (m / 2), k = 2 * (i % (m / 2));
+      if (v0 + r < other) {
+        uint64_t e0 = sr[r * pitch + k], e1 = sr[r * pitch + k + 1];
+        tail(v0 + r, k, e0, e1);
+        st16(y + (v0 + r) * m + k, e0, e1);
+      }
     }
   }
 }
 
+// ---- K2: DFT along axis 0 of [m, other] (AXIS 0) or along axis 1 of
+// [other, m] (AXIS 1); then y *= tw (optional), y *= scale (if != 1).
+// axis 0: tw[k * tw_stride + (c & tw_mask)]: full [m, other] (stride other,
+// mask all ones) or periodic [m, tw_period] (stride and mask + 1 = tw_period).
+// axis 1: tw is [other, m] (full only).
+template <int L, bool INV, int AXIS>
+__global__ void __launch_bounds__(Plan<L>::NT)
+ntt_phase_axis_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, long long other,
+                      const uint64_t* __restrict__ pt, const uint64_t* __restrict__ tw,
+                      long long tw_stride, long long tw_mask, uint64_t scale) {
+  if constexpr (AXIS == 0)
+    cols_tile<L, INV>(x, y, other, nullptr, pt, tw, tw_stride, tw_mask, scale);
+  else
+    rows_tile<L, INV>(x, y, other, pt, tw, scale);
+}
+
 // ---- K3: [m1, mc, cols] -> same shape. For each k1: x[k1, a2, c] *=
 // ta[k1, a2] (optional), DFT along the middle axis, y[k1, k2, c] *= t[k2, c]
-// (optional). grid = (cols / nvec, m1).
-__global__ void __launch_bounds__(kThreads)
-ntt_phase_batched_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, int mc_log2,
-                         int cols, int nvec, const uint64_t* __restrict__ wp_g,
-                         const uint64_t* __restrict__ ta, const uint64_t* __restrict__ t) {
-  extern __shared__ uint64_t smem[];
-  const int mc = 1 << mc_log2;
-  uint64_t* wp = smem;
-  uint64_t* s = smem + (mc >> 1);
-  load_wp(wp, wp_g, mc_log2);
-  const int k1 = blockIdx.y;
-  const int c0 = blockIdx.x * nvec;
-  const long long base = (long long)k1 * mc * cols;
-  const int total = mc * nvec;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int v = idx % nvec, j = idx / nvec;
-    uint64_t val = x[base + (long long)j * cols + c0 + v];
-    if (ta) val = gl::mul(val, ta[k1 * mc + j]);
-    s[bitrev(j, mc_log2) * nvec + v] = val;
-  }
-  __syncthreads();
-  smem_ntt<true>(s, wp, mc_log2, nvec, nvec, 1);
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int v = idx % nvec, k = idx / nvec;
-    uint64_t val = s[k * nvec + v];
-    if (t) val = gl::mul(val, t[(long long)k * cols + c0 + v]);
-    y[base + (long long)k * cols + c0 + v] = val;
-  }
+// (optional). grid = (column tiles, m1).
+template <int L, bool INV>
+__global__ void __launch_bounds__(Plan<L>::NT, Plan<L>::NT == 256 ? 3 : 1)
+ntt_phase_batched_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, int cols,
+                         const uint64_t* __restrict__ pt, const uint64_t* __restrict__ ta,
+                         const uint64_t* __restrict__ t) {
+  const long long base = (long long)blockIdx.y * cols << L;
+  cols_tile<L, INV>(x + base, y + base, cols, ta ? ta + ((long long)blockIdx.y << L) : nullptr, pt, t,
+                    cols, -1, 1);
 }
 
 // ---- K4: x viewed [m1, m2, mc] = X[k1, k2, b3] -> y [mc, m2, m1] =
@@ -138,37 +249,110 @@ ntt_phase_last_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, 
   }
 }
 
-}  // namespace
+// Shared memory above the 48 KB default needs the kernel's opt-in, once per
+// kernel and device (`done`: one bit a device), so that no launch after the
+// first, and none captured into a CUDA graph, makes the call.
+template <class K>
+cudaError_t smem_opt_in(K kernel, size_t bytes, unsigned long long& done) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err) return err;
+  const unsigned long long bit = 1ULL << (dev & 63);
+  if (done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (!err) done |= bit;
+  return err;
+}
 
-// All sizes are powers of two, 2 <= m <= 2^10. Each function returns the
-// launch's cudaError_t (0 = launched), or cudaErrorInvalidValue for sizes
-// it does not take.
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-extern "C" int sezkp_ntt_phase_axis(const void* x, void* y, int m_log2, long long other, int axis,
-                                    const void* wp, const void* tw, long long tw_period,
-                                    unsigned long long scale, void* stream) {
-  if (m_log2 < 1 || m_log2 > 10 || other < 1 || (axis != 0 && axis != 1)) return (int)cudaErrorInvalidValue;
-  if (axis == 1 && tw_period != 0) return (int)cudaErrorInvalidValue;
-  const int m = 1 << m_log2;
-  const int nvec = pick_nvec(m, other);
-  const size_t smem = smem_bytes(m, nvec, axis == 1);
-  ntt_phase_axis_kernel<<<(unsigned)(other / nvec), kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint64_t*)x, (uint64_t*)y, m_log2, other, axis, nvec, (const uint64_t*)wp,
-      (const uint64_t*)tw, tw_period, (uint64_t)scale);
+template <int L, bool INV>
+int launch_axis(const void* x, void* y, long long other, int axis, const void* pt, const void* tw,
+                long long tw_period, unsigned long long scale, cudaStream_t stream) {
+  using P = Plan<L>;
+  cudaError_t err;
+  if (axis == 0) {
+    constexpr int CP = P::NT / P::T;
+    constexpr size_t smem = P::NPASS > 1 ? sizeof(ulonglong2) * (1 << L) * CP : 0;
+    auto kernel = ntt_phase_axis_kernel<L, INV, 0>;
+    static unsigned long long done = 0;
+    if ((err = smem_opt_in(kernel, smem, done))) return (int)err;
+    kernel<<<(unsigned)((other + 2 * CP - 1) / (2 * CP)), P::NT, smem, stream>>>(
+        (const uint64_t*)x, (uint64_t*)y, other, (const uint64_t*)pt, (const uint64_t*)tw,
+        tw_period ? tw_period : other, tw_period ? tw_period - 1 : -1, (uint64_t)scale);
+  } else {
+    constexpr int V = P::NT / P::T;
+    constexpr size_t smem = P::T > 1 ? sizeof(uint64_t) * V * ((1 << L) + 1) : 0;
+    auto kernel = ntt_phase_axis_kernel<L, INV, 1>;
+    static unsigned long long done = 0;
+    if ((err = smem_opt_in(kernel, smem, done))) return (int)err;
+    kernel<<<(unsigned)((other + V - 1) / V), P::NT, smem, stream>>>(
+        (const uint64_t*)x, (uint64_t*)y, other, (const uint64_t*)pt, (const uint64_t*)tw, 0, 0,
+        (uint64_t)scale);
+  }
   return (int)cudaGetLastError();
 }
 
-extern "C" int sezkp_ntt_phase_batched(const void* x, void* y, int m1, int mc_log2, int cols,
-                                       const void* wp, const void* ta, const void* t, void* stream) {
-  if (mc_log2 < 1 || mc_log2 > 10 || m1 < 1 || m1 > 65535 || cols < 1) return (int)cudaErrorInvalidValue;
-  const int mc = 1 << mc_log2;
-  const int nvec = pick_nvec(mc, cols);
-  const size_t smem = smem_bytes(mc, nvec, false);
-  dim3 grid((unsigned)(cols / nvec), (unsigned)m1);
-  ntt_phase_batched_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint64_t*)x, (uint64_t*)y, mc_log2, cols, nvec, (const uint64_t*)wp,
-      (const uint64_t*)ta, (const uint64_t*)t);
+template <int L, bool INV>
+int launch_batched(const void* x, void* y, int m1, int cols, const void* pt, const void* ta, const void* t,
+                   cudaStream_t stream) {
+  using P = Plan<L>;
+  constexpr int CP = P::NT / P::T;
+  constexpr size_t smem = P::NPASS > 1 ? sizeof(ulonglong2) * (1 << L) * CP : 0;
+  auto kernel = ntt_phase_batched_kernel<L, INV>;
+  static unsigned long long done = 0;
+  cudaError_t err;
+  if ((err = smem_opt_in(kernel, smem, done))) return (int)err;
+  dim3 grid((unsigned)((cols + 2 * CP - 1) / (2 * CP)), (unsigned)m1);
+  kernel<<<grid, P::NT, smem, stream>>>((const uint64_t*)x, (uint64_t*)y, cols, (const uint64_t*)pt,
+                                        (const uint64_t*)ta, (const uint64_t*)t);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define NTT_DISPATCH(launch, ...)                                            \
+  switch (m_log2) {                                                          \
+    case 1: return inverse ? launch<1, true>(__VA_ARGS__) : launch<1, false>(__VA_ARGS__);   \
+    case 2: return inverse ? launch<2, true>(__VA_ARGS__) : launch<2, false>(__VA_ARGS__);   \
+    case 3: return inverse ? launch<3, true>(__VA_ARGS__) : launch<3, false>(__VA_ARGS__);   \
+    case 4: return inverse ? launch<4, true>(__VA_ARGS__) : launch<4, false>(__VA_ARGS__);   \
+    case 5: return inverse ? launch<5, true>(__VA_ARGS__) : launch<5, false>(__VA_ARGS__);   \
+    case 6: return inverse ? launch<6, true>(__VA_ARGS__) : launch<6, false>(__VA_ARGS__);   \
+    case 7: return inverse ? launch<7, true>(__VA_ARGS__) : launch<7, false>(__VA_ARGS__);   \
+    case 8: return inverse ? launch<8, true>(__VA_ARGS__) : launch<8, false>(__VA_ARGS__);   \
+    case 9: return inverse ? launch<9, true>(__VA_ARGS__) : launch<9, false>(__VA_ARGS__);   \
+    case 10: return inverse ? launch<10, true>(__VA_ARGS__) : launch<10, false>(__VA_ARGS__); \
+  }                                                                          \
+  return (int)cudaErrorInvalidValue;
+
+// All sizes are powers of two, 2 <= m <= 2^10. Each function returns the
+// launch's cudaError_t (0 = launched), or cudaErrorInvalidValue for sizes,
+// layouts or alignments it does not take. K2 and K3: every pointer 16-byte
+// aligned; pt = the pass twiddles [m/16, 16] (ntt_torch._pass_twiddles),
+// needed from m = 128 up.
+
+extern "C" int sezkp_ntt_phase_axis(const void* x, void* y, int m_log2, long long other, int axis, int inverse,
+                                    const void* pt, const void* tw, long long tw_period,
+                                    unsigned long long scale, void* stream) {
+  if (m_log2 < 1 || m_log2 > 10 || other < 1 || (axis != 0 && axis != 1)) return (int)cudaErrorInvalidValue;
+  if (axis == 1 && tw_period != 0) return (int)cudaErrorInvalidValue;
+  if (axis == 0 && (other % 2 || other / 2 > 0x7fffffffLL)) return (int)cudaErrorInvalidValue;
+  if (tw_period && (tw_period < 2 || (tw_period & (tw_period - 1)) || other % tw_period))
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(x) || !aligned16(y) || !aligned16(tw) || (m_log2 >= 7 && !pt)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  NTT_DISPATCH(launch_axis, x, y, other, axis, pt, tw, tw_period, scale, st)
+}
+
+extern "C" int sezkp_ntt_phase_batched(const void* x, void* y, int m1, int mc_log2, int cols, int inverse,
+                                       const void* pt, const void* ta, const void* t, void* stream) {
+  const int m_log2 = mc_log2;
+  if (m_log2 < 1 || m_log2 > 10 || m1 < 1 || m1 > 65535 || cols < 2 || cols % 2) return (int)cudaErrorInvalidValue;
+  if (!aligned16(x) || !aligned16(y) || !aligned16(t) || (m_log2 >= 7 && !pt)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  NTT_DISPATCH(launch_batched, x, y, m1, cols, pt, ta, t, st)
 }
 
 extern "C" int sezkp_ntt_phase_last(const void* x, void* y, int m1, int m2, int mc_log2,

@@ -97,6 +97,8 @@ def add(a, b):
 
 
 def sub(a, b):
+    """a - b; right for a < 2^64 and b <= p where the difference is one of
+    field elements (a - b >= -p)."""
     d = a - b
     # borrow: the wrapped value is a - b + 2^64; take EPS off to get a - b + p
     return torch.where(_ult(a, b), d - EPS, d)
@@ -133,6 +135,45 @@ def mul(a, b):
     r = t0 + t1
     r = torch.where(_ult(r, t1), r + EPS, r)
     return _canon(r)
+
+
+def _srl(x, k):
+    """Logical right shift of int64 bit patterns by k in 1..63 (int or tensor)."""
+    return (x >> k) & ((torch.ones_like(x) << (64 - k)) - 1)
+
+
+def mul_pow2(x, e):
+    """x * 2^e mod p for 0 <= e < 192 (int or tensor, broadcast with x), from
+    shifts alone: line for line the plain version of ``gl::mul_pow2``
+    (csrc/goldilocks.cuh). 2^96 = -1, so e >= 96 is the negative of
+    x * 2^(e - 96); with s = e mod 96, N = x * 2^s < 2^160 splits into
+    n0 (bits 0..63), n1 (64..95), n2 (96..159) and
+    N = n0 + n1 * EPS - n2 (mod p). Shift counts are clamped into range where
+    a branch does not use them."""
+    e = torch.as_tensor(e, dtype=torch.int64, device=x.device)
+    x, e = torch.broadcast_tensors(x, e)
+    negate = e >= 96
+    s = torch.where(negate, e - 96, e)
+    lt64 = s < 64
+    zero = torch.zeros_like(x)
+    n0 = torch.where(s == 0, x, torch.where(lt64, x << s.clamp(max=63), zero))
+    n1 = torch.where(
+        s == 0, zero,
+        torch.where(lt64, _srl(x, (64 - s).clamp(1, 63)), x << (s - 64).clamp(0, 31)) & _M32,
+    )
+    n2 = torch.where(s > 32, _srl(x, (96 - s).clamp(1, 63)), zero)
+    t0 = sub(n0, n2)
+    t1 = (n1 << 32) - n1
+    r = t0 + t1
+    r = torch.where(_ult(r, t1), r + EPS, r)
+    r = _canon(r)
+    return torch.where(negate, neg(r), r)
+
+
+def bfly(u, t):
+    """(u + t, u - t), the plain version of ``gl::bfly``: the sum as
+    u - (p - t), a borrow adding p back, as ``sub`` does (b = p when t = 0)."""
+    return sub(u, _P_I64 - t), sub(u, t)
 
 
 def pow_p_minus_2(x):

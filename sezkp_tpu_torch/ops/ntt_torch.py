@@ -30,12 +30,28 @@ n1 = 2^(log2(n) // 2), two launches (csrc/ntt_small.cu):
   times n^-1 for the inverse, stored as ``[n2, n1]`` (natural order).
 
 At these sizes (at most 64 KB of data) a launch's latency is the cost, not its
-bytes or operations. K2-K4 are in csrc/ntt_phases.cu. Each moves 16 B per element per phase
-plus the twiddle reads, and does log2(m)/2 butterflies per element. In the
-sm_90a disassembly a butterfly's field arithmetic is 56 instructions (modular
-multiply 34, add 14, subtract 8), 39 of them on the ALU pipe: by those counts
-the integer rate of an H100, not its memory, is the nearer bound at the main
-path's shapes (chip_smoke.py computes both). The phase-A twiddle of the three-factor form stays split into
+bytes or operations. K2-K4 are in csrc/ntt_phases.cu. Each moves 16 B per
+element per phase plus the twiddle reads; the integer ALU pipe of an H100,
+not its memory, is the nearer bound at the main path's shapes (chip_smoke.py
+computes both from instruction counts read in the sm_90a disassembly).
+
+- **K4** (and K5/K6) run log2(m) radix-2 stages over a tile in shared
+  memory, a barrier after each: log2(m)/2 butterflies an element of 56 field
+  instructions (multiply 34, add 14, subtract 8; 39 on the ALU pipe) and
+  about 35 more of index arithmetic on run-time sizes.
+- **K2, K3** run register-resident radix-16 passes (csrc/ntt_reg.cuh;
+  ``pass_model`` below is the same schedule in tensor code), templated on m
+  and the direction: no index arithmetic on run-time values, one shared
+  memory exchange and one barrier a tile (two from m = 512), and every
+  twiddle inside a length-16 DFT, and between passes up to m = 64, a power of
+  two (``gl::mul_pow2``: shifts, no 64-bit product; 15 of a length-16 DFT's
+  32 butterflies have none). General products remain for the twiddles
+  between passes from m = 128 (``_pass_twiddles``), the fused tables and the
+  scale. Loads and stores are 16 B: on the card K2 along axis 0 and K3 take
+  an even column count, a periodic twiddle's period is a power of two >= 2,
+  and every tensor is 16-byte aligned.
+
+The phase-A twiddle of the three-factor form stays split into
 ``ta`` (rides K3) and a periodic ``tb`` (rides K2): two small tables that stay
 in cache instead of one of n elements to stream.
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
@@ -146,6 +162,167 @@ def _t_mid(l_mid: int, l_last: int, inverse: bool, device) -> torch.Tensor:
     return _cached(("tmid", l_mid, l_last, inverse), device, make)
 
 
+# ----------------------- the pass schedule of K2 and K3 -----------------------
+
+# 2^POW2_ROOT_EXP[k] = w_{2^k} (primitive_root_2exp(k)) for k <= 6: 2 has order
+# 192 mod p, so every root of unity of order up to 64 is a power of two. The
+# kernels hold the same numbers as compile-time constants (csrc/ntt_reg.cuh,
+# kRootExp); tests/test_torch_ntt.py checks both against the roots.
+POW2_ROOT_EXP = (0, 96, 48, 120, 156, 78, 39)
+REG_LOG2 = 4  # a thread holds 16 elements of a vector: radix-16 register passes
+
+
+def _pow2_exp(k_log2: int, i: int, inverse: bool) -> int:
+    """e with 2^e = w_{2^k}^i (w^-i for the inverse), 0 <= e < 192."""
+    e = POW2_ROOT_EXP[k_log2] * i % 192
+    return (192 - e) % 192 if inverse else e
+
+
+def _pow2_exps(m_log2: int, inverse: bool, device) -> torch.Tensor:
+    """Exponents e_k, 2^e_k = w_m^k (or w_m^-k), k < m, for m <= 64; int64 [m]."""
+    if m_log2 > 6:
+        raise ValueError("w_m is a power of two only for m <= 64")
+    return _cached(
+        ("pow2exp", m_log2, inverse), device,
+        lambda: np.array([_pow2_exp(m_log2, k, inverse) for k in range(1 << m_log2)], dtype=np.uint64),
+    )
+
+
+def _pass_twiddles(m_log2: int, inverse: bool, device) -> torch.Tensor:
+    """The general twiddles between the first and the second pass for
+    m >= 128: PT[t, k1] = w_m^(k1 t), int64 [m/16, 16] (row t is one thread's)."""
+
+    def make():
+        w = ntt_host.powers(_root(m_log2, inverse), 1 << m_log2)
+        t = np.arange((1 << m_log2) >> REG_LOG2, dtype=np.uint64)[:, None]
+        k1 = np.arange(1 << REG_LOG2, dtype=np.uint64)[None, :]
+        return w[(t * k1) & np.uint64((1 << m_log2) - 1)]
+
+    return _cached(("passtw", m_log2, inverse), device, make)
+
+
+def _pass_logs(m_log2: int) -> list:
+    """log2 of each register pass's radix: one pass up to 16, then 16 x r, then 16 x 16 x r."""
+    if m_log2 <= REG_LOG2:
+        return [m_log2]
+    if m_log2 <= 2 * REG_LOG2:
+        return [REG_LOG2, m_log2 - REG_LOG2]
+    return [REG_LOG2, REG_LOG2, m_log2 - 2 * REG_LOG2]
+
+
+class _Tally:
+    """Field operations per vector of a pass_model run, by the instruction
+    class chip_smoke.py counts in the disassembly (mul_pow2 by shift range)."""
+
+    def __init__(self, nvec: int):
+        self.nvec, self.ops = nvec, {}
+
+    def add(self, key: str, t: torch.Tensor, where=None) -> None:
+        n = int(t.numel() if where is None else torch.broadcast_to(where, t.shape).sum())
+        self.ops[key] = self.ops.get(key, 0) + n // self.nvec
+
+    def pow2(self, t: torch.Tensor, e: int) -> None:
+        s = e % 96
+        if s:
+            self.add("pow2_lo" if s <= 32 else "pow2_mid" if s < 64 else "pow2_hi", t)
+
+
+def _reg_dft(a: torch.Tensor, lr: int, inverse: bool, tally=None) -> torch.Tensor:
+    """Length-2^lr DFT along the last axis as one thread runs it in registers
+    (ntt_reg.cuh ``dft_reg``): the inputs renamed into bit-reversed order,
+    radix-2 DIT stages, every twiddle w_{2^s}^pos a power of two; a twiddle
+    2^e with e >= 96 is -2^(e-96), taken by swapping the add and the subtract."""
+    b = [a[..., int(i)] for i in ntt_host.bitrev_permutation(1 << lr)]
+    for s in range(1, lr + 1):
+        half = 1 << (s - 1)
+        for q in range(len(b) // 2):
+            grp, pos = divmod(q, half)
+            i0 = grp * 2 * half + pos
+            i1 = i0 + half
+            e = _pow2_exp(s, pos, inverse)
+            u, v = b[i0], b[i1]
+            t = FT.mul_pow2(v, e % 96) if e % 96 else v
+            if tally:
+                tally.pow2(v, e)
+                tally.add("bfly", u)
+            s_, d_ = FT.bfly(u, t)
+            b[i0], b[i1] = (s_, d_) if e < 96 else (d_, s_)
+    return torch.stack(b, dim=-1)
+
+
+def _twiddle_pow2(a: torch.Tensor, k_log2: int, idx: torch.Tensor, inverse: bool, tally=None):
+    """a * w_{2^k}^idx elementwise as the kernels do it between passes:
+    mul_pow2 (negation included); idx == 0 is left alone."""
+    e = _pow2_exps(k_log2, inverse, a.device)[idx % (1 << k_log2)]
+    if tally:
+        nz = idx != 0
+        for ev in e[nz].unique().tolist():
+            sel = nz & (e == ev)
+            s = ev % 96
+            if s:
+                key = "pow2_lo" if s <= 32 else "pow2_mid" if s < 64 else "pow2_hi"
+                tally.add(key, a, sel)
+            if ev >= 96:
+                tally.add("neg", a, sel)
+    return torch.where(idx == 0, a, FT.mul_pow2(a, e))
+
+
+def pass_model(x: torch.Tensor, m_log2: int, inverse: bool, tally=None) -> torch.Tensor:
+    """The DFT along the last axis, length m = 2^m_log2, in the order K2 and
+    K3 compute it (ntt_phases.cu, ntt_reg.cuh): the plain model the kernels'
+    design is rehearsed on without the card. Thread t of a vector holds 16
+    elements (all of them for m <= 16) and runs, with M1 = m / 16:
+
+    - pass 1: x[j1*M1 + t] for j1 < 16 -> a length-16 DFT in registers
+      -> times w_m^(k1 t) (powers of two for m <= 64, ``mul_pow2``; the table
+      ``_pass_twiddles`` and ``mul`` from m = 128) -> shared memory at
+      position k1*M1 + t;
+    - m <= 256: pass 2 reads positions 16t .. 16t+15, i.e. 16/M1 vectors of
+      length M1 (k1 = t*16/M1 + i), and their DFTs are
+      y[k1 + 16 k2];
+    - m = 512, 1024 (M1 = 16*M2): pass 2, thread t = 16*jj + k1, reads
+      positions k1*M1 + j2a*M2 + jj, a length-16 DFT, times
+      w_M1^(k2a jj) (powers of two), written back in place; pass 3 reads
+      positions 16t .. 16t+15 = d*M2 + j3 (d = 16 k1 + k2a), length-M2 DFTs,
+      y[k1 + 16 k2a + 256 k3]."""
+    batch = x.shape[:-1]
+    m = 1 << m_log2
+    logs = _pass_logs(m_log2)
+    T = m >> logs[0]
+    a = _reg_dft(x.reshape(batch + (1 << logs[0], T)).transpose(-1, -2), logs[0], inverse, tally)
+    if len(logs) == 1:
+        return a.reshape(batch + (m,))
+    t = torch.arange(T, device=x.device)[:, None]
+    k1 = torch.arange(16, device=x.device)[None, :]
+    if m_log2 <= 6:
+        a = _twiddle_pow2(a, m_log2, t * k1, inverse, tally)
+    else:
+        a = torch.cat([a[..., :1], FT.mul(a[..., 1:], _pass_twiddles(m_log2, inverse, x.device)[:, 1:])], -1)
+        if tally:
+            tally.add("mul", a[..., 1:])
+    pos = a.transpose(-1, -2).reshape(batch + (m,))  # position k1*M1 + t
+    if len(logs) == 2:
+        y = _reg_dft(pos.reshape(batch + (T, 16 // T, T)), logs[1], inverse, tally)
+        return y.reshape(batch + (16, T)).transpose(-1, -2).reshape(batch + (m,))
+    m2 = 1 << logs[2]
+    q = _reg_dft(pos.reshape(batch + (16, 16, m2)).transpose(-1, -2), REG_LOG2, inverse, tally)
+    jj = torch.arange(m2, device=x.device)[:, None]
+    k2a = torch.arange(16, device=x.device)[None, :]
+    q = _twiddle_pow2(q, m_log2 - REG_LOG2, jj * k2a, inverse, tally)  # [.., k1, jj, k2a]
+    y = _reg_dft(q.transpose(-1, -2), logs[2], inverse, tally)  # [.., k1, k2a, k3]
+    return y.transpose(-1, -3).reshape(batch + (m,))
+
+
+def pass_counts(m_log2: int, inverse: bool) -> dict:
+    """Field operations per vector of length 2^m_log2 in the kernels' pass
+    schedule (general ``mul``; ``bfly``, the butterflies; ``mul_pow2`` by
+    shift range; ``neg``), for the operation bounds of
+    chip_smoke.py. The fused table twiddles and the scale are not in it."""
+    tally = _Tally(1)
+    pass_model(torch.zeros(1 << m_log2, dtype=torch.int64), m_log2, inverse, tally)
+    return tally.ops
+
+
 # ------------------------------ plain versions ------------------------------
 
 
@@ -239,9 +416,16 @@ def _ptr(t, device) -> int:
     return t.data_ptr()
 
 
+def _check_aligned(*ts) -> None:
+    for t in ts:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("K2/K3 take 16-byte aligned tensors (their loads and stores are 16 B)")
+
+
 def phase_axis(x, axis: int, inverse: bool, tw=None, tw_period=None, scale: int = 1):
     """K2 wrapper. axis 0: x [m, other]; axis 1: x [other, m]. tw: full table
-    of x's shape, or (axis 0 only) [m, tw_period] repeating along columns."""
+    of x's shape, or (axis 0 only) [m, tw_period] repeating along columns.
+    On the card: axis 0 takes an even `other`, tw_period a power of two >= 2."""
     if not x.is_cuda:
         return phase_axis_plain(x, axis, inverse, tw, tw_period, scale)
     _check_field(x, 2, "phase_axis")
@@ -251,11 +435,17 @@ def phase_axis(x, axis: int, inverse: bool, tw=None, tw_period=None, scale: int 
         want = (m, tw_period) if tw_period is not None else tuple(x.shape)
         if tuple(tw.shape) != want or (tw_period is not None and other % tw_period):
             raise ValueError("twiddle table shape does not match")
+    if tw_period is not None and (tw_period < 2 or tw_period & (tw_period - 1)):
+        raise ValueError("phase_axis on the card takes a tw_period that is a power of two >= 2")
+    if axis == 0 and other % 2:
+        raise ValueError("phase_axis along axis 0 on the card takes an even number of columns")
     y = torch.empty_like(x)
+    _check_aligned(x, y, tw)
+    pt = _pass_twiddles(m_log2, inverse, x.device) if m_log2 >= 7 else None
     with torch.cuda.device(x.device):
         rc = _kernels.lib().sezkp_ntt_phase_axis(
-            x.data_ptr(), y.data_ptr(), m_log2, other, axis,
-            _wp(m_log2, inverse, x.device).data_ptr(), _ptr(tw, x.device),
+            x.data_ptr(), y.data_ptr(), m_log2, other, axis, int(inverse),
+            _ptr(pt, x.device), _ptr(tw, x.device),
             int(tw_period or 0), int(scale), _kernels.stream_ptr(),
         )
     _kernels.check(rc, "ntt_phase_axis")
@@ -264,7 +454,8 @@ def phase_axis(x, axis: int, inverse: bool, tw=None, tw_period=None, scale: int 
 
 
 def phase_batched(x, inverse: bool, ta=None, t=None):
-    """K3 wrapper: x [m1, mc, cols] -> same shape. ta [m1, mc], t [mc, cols]."""
+    """K3 wrapper: x [m1, mc, cols] -> same shape. ta [m1, mc], t [mc, cols].
+    On the card: cols even."""
     if not x.is_cuda:
         return phase_batched_plain(x, inverse, ta, t)
     _check_field(x, 3, "phase_batched")
@@ -273,13 +464,16 @@ def phase_batched(x, inverse: bool, ta=None, t=None):
         raise ValueError("ta must be [m1, mc]")
     if t is not None and tuple(t.shape) != (mc, cols):
         raise ValueError("t must be [mc, cols]")
+    if cols % 2:
+        raise ValueError("phase_batched on the card takes an even number of columns")
     mc_log2 = mc.bit_length() - 1
     y = torch.empty_like(x)
+    _check_aligned(x, y, t)
+    pt = _pass_twiddles(mc_log2, inverse, x.device) if mc_log2 >= 7 else None
     with torch.cuda.device(x.device):
         rc = _kernels.lib().sezkp_ntt_phase_batched(
-            x.data_ptr(), y.data_ptr(), m1, mc_log2, cols,
-            _wp(mc_log2, inverse, x.device).data_ptr(),
-            _ptr(ta, x.device), _ptr(t, x.device), _kernels.stream_ptr(),
+            x.data_ptr(), y.data_ptr(), m1, mc_log2, cols, int(inverse),
+            _ptr(pt, x.device), _ptr(ta, x.device), _ptr(t, x.device), _kernels.stream_ptr(),
         )
     _kernels.check(rc, "ntt_phase_batched")
     phase_batched.launches += 1
@@ -367,6 +561,8 @@ def _ntt(a: torch.Tensor, inverse: bool) -> torch.Tensor:
     dev = a.device
     inv_n = G.inv(n) if inverse else 1
     a = a.contiguous()
+    if a.is_cuda and a.data_ptr() % 16:
+        a = a.clone()  # the phase kernels take 16-byte aligned rows
     if n_log2 < MIN_LOG2:
         l1 = min(10, n_log2 // 2)
         l2 = n_log2 - l1

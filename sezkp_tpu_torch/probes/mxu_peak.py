@@ -56,10 +56,15 @@ def main(argv=None) -> int:
         print(f"{name:46s}: {dt * 1e3:8.3f} ms {tops(macs, dt)}", flush=True)
 
     def bench_library(name, w, x, nrep, macs):
+        """torch._int_mm with B row-major and with the same values
+        column-major (the layout cuBLASLt's int8 path takes natively)."""
         if not on_card:
             return
         dt = timeit(lambda: int_mm_sum(w, x, nrep), dev, args.iters)
-        print(f"{name:46s}: {dt * 1e3:8.3f} ms {tops(macs, dt)}", flush=True)
+        print(f"{name + ', B row-major':46s}: {dt * 1e3:8.3f} ms {tops(macs, dt)}", flush=True)
+        xc = x.t().contiguous().t()
+        dt = timeit(lambda: int_mm_sum(w, xc, nrep), dev, args.iters)
+        print(f"{name + ', B column-major':46s}: {dt * 1e3:8.3f} ms {tops(macs, dt)}", flush=True)
 
     # the digit-style phase: m = 256, NDIG weight blocks, NDIG planes side by side
     m, other, nd = 256, 1 << args.other_log2, ND.NDIG

@@ -78,3 +78,45 @@ def test_planes_round_trip():
     lo2, hi2 = convert.planes_from_field(t)
     assert np.array_equal(lo2, np.asarray(lo)) and np.array_equal(hi2, np.asarray(hi))
     assert np.array_equal(FT.unpack(FT.pack(a)), a)
+
+
+def _pow2_operands():
+    """Random canonical operands with 0, 1, 2^32, 2^63 and p - 1 planted."""
+    rng = np.random.default_rng(14)
+    edge = np.array([0, 1, 2**32, 2**63, P - 1], dtype=np.uint64)
+    return np.concatenate([edge, rng.integers(0, P, 59, dtype=np.uint64)])
+
+
+@pytest.mark.parametrize("lo", [0, 48, 96, 144])
+def test_mul_pow2_matches_mul_and_jax(lo):
+    """FT.mul_pow2(x, e) == FT.mul(x, 2^e mod p) == the JAX package's FJ.mul
+    for every e in [lo, lo + 48): the four quarters of 0 .. 191 cover the
+    three shift ranges of the fold and the negated half (e >= 96)."""
+    x = _pow2_operands()
+    es = np.arange(lo, lo + 48)
+    pw = np.array([pow(2, int(e), P) for e in es], dtype=np.uint64)
+    xs = np.broadcast_to(x[None, :], (len(es), len(x))).copy()
+    ws = np.broadcast_to(pw[:, None], xs.shape).copy()
+    want = FJ.unpack(FJ.mul(FJ.pack(xs), FJ.pack(ws)))
+    assert np.array_equal(FT.unpack(FT.mul(FT.pack(xs), FT.pack(ws))), want)
+    # one int exponent at a time, and every exponent at once as a tensor
+    for i, e in enumerate(es):
+        assert np.array_equal(FT.unpack(FT.mul_pow2(FT.pack(x), int(e))), want[i]), int(e)
+    got = FT.mul_pow2(FT.pack(xs), torch.as_tensor(es, dtype=torch.int64)[:, None])
+    assert np.array_equal(FT.unpack(got), want)
+
+
+def test_bfly_is_add_and_sub():
+    """FT.bfly (the butterfly's sum as u - (p - t)) == (add, sub), and the
+    oracle's, on the edge values both ways round."""
+    a, b = _operands()
+    s, d = FT.bfly(FT.pack(a), FT.pack(b))
+    assert np.array_equal(FT.unpack(s), G.add(a, b)) and np.array_equal(FT.unpack(d), G.sub(a, b))
+    s, d = FT.bfly(FT.pack(b), FT.pack(a))
+    assert np.array_equal(FT.unpack(s), G.add(b, a)) and np.array_equal(FT.unpack(d), G.sub(b, a))
+
+
+def test_neg_edges():
+    x = _pow2_operands()
+    assert np.array_equal(FT.unpack(FT.neg(FT.pack(x))), G.neg(x))
+    assert np.array_equal(FT.unpack(FT.add(FT.neg(FT.pack(x)), FT.pack(x))), np.zeros_like(x))

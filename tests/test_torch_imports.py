@@ -208,3 +208,18 @@ def test_tracing_and_config(tmp_path):
     p.write_text("t = 64\nb = 8\ntau = 2\nrepeats = 3\n")
     assert config.load_profile(str(p)) == config.BenchProfile(64, 8, 2, 3)
     assert config.env("NOPE_NOT_SET", "d") == "d"
+
+
+def test_ntt_variants_edit_the_sources_as_they_are(capsys):
+    """Every A/B variant of probes/ntt_variants.py finds the text it edits in
+    this checkout's ops/csrc (the probe builds on the card only)."""
+    from sezkp_tpu_torch.ops import _kernels
+    from sezkp_tpu_torch.probes import ntt_variants
+
+    for name, edits in ntt_variants.VARIANTS.items():
+        for fn, old, new in edits:
+            with open(os.path.join(_kernels._CSRC, fn)) as f:
+                assert old in f.read(), (name, fn, old)
+            assert old != new
+    assert ntt_variants.main(["--device", "cpu"]) == 0
+    assert "needs nvcc and the card" in capsys.readouterr().out

@@ -1,15 +1,22 @@
 """Port NTT (plain versions of the phase kernels, on the CPU) vs the JAX
 package: the MXU kernels in interpret mode at 2^14, the roll-based four-step
 kernels in interpret mode below that, the host oracle at every size, each
-phase against a direct per-axis DFT, and the DEEP coset LDE.
+phase against a direct per-axis DFT, the DEEP coset LDE, and the model of K2
+and K3's register-pass schedule (``pass_model``) at every length they take.
 
 Tolerance: none -- field elements, exact equality."""
 
+import functools
+import os
+import re
+
+import jax
 import numpy as np
 import pytest
 import torch
 
 from sezkp_tpu.ops import goldilocks as G
+from sezkp_tpu.ops import goldilocks_jax as FJ
 from sezkp_tpu.ops import ntt as N
 from sezkp_tpu.ops import ntt_jax
 from sezkp_tpu.ops import ntt_mxu
@@ -188,3 +195,85 @@ def test_tables_cached_per_device():
     a = NT._wp(7, False, "cpu")
     assert NT._wp(7, False, torch.device("cpu")) is a
     assert NT._wp(7, True, "cpu") is not a
+
+
+# ------------------- the register-pass schedule of K2 and K3 -------------------
+
+
+def test_pow2_root_exponents_match_roots_and_header():
+    """2^POW2_ROOT_EXP[k] = w_{2^k} (k <= 6); the kernels' compile-time copy in
+    csrc/ntt_reg.cuh (root_exp) holds the same numbers."""
+    for k, e in enumerate(NT.POW2_ROOT_EXP):
+        assert pow(2, e, P) == int(G.primitive_root_2exp(k)), k
+    hdr = open(os.path.join(os.path.dirname(NT.__file__), "csrc", "ntt_reg.cuh")).read()
+    body = re.search(r"constexpr int root_exp\(int k\) \{(.*?)\}", hdr, re.S).group(1)
+    table = {int(k): int(e) for k, e in re.findall(r"k == (\d+) \? (\d+)", body)}
+    assert table == {k: e for k, e in enumerate(NT.POW2_ROOT_EXP) if k}
+
+
+@pytest.mark.parametrize("m_log2", range(1, 7))
+@pytest.mark.parametrize("inverse", [False, True])
+def test_pow2_exps_are_powers_of_the_root(m_log2, inverse):
+    """Every _pow2_exps entry: 2^e_k = w_m^k (w_m^-k for the inverse), m <= 64."""
+    m = 1 << m_log2
+    w = NT._root(m_log2, inverse)
+    exps = NT._pow2_exps(m_log2, inverse, "cpu").tolist()
+    assert len(exps) == m and all(0 <= e < 192 for e in exps)
+    assert [pow(2, e, P) for e in exps] == [pow(w, k, P) for k in range(m)]
+    assert NT._pow2_exps(m_log2, inverse, torch.device("cpu")) is NT._pow2_exps(m_log2, inverse, "cpu")
+
+
+def test_pow2_exps_refuse_m_above_64():
+    with pytest.raises(ValueError):
+        NT._pow2_exps(7, False, "cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_stages(m_log2):
+    """ntt_jax._ntt_stages jitted once per length, the tables an argument, so
+    both directions share one XLA:CPU compile."""
+    return jax.jit(lambda lo, hi, tables: ntt_jax._ntt_stages((lo, hi), tables, m_log2))
+
+
+@pytest.mark.parametrize("m_log2", range(1, 11))
+@pytest.mark.parametrize("inverse", [False, True])
+def test_pass_model_matches_plain_and_jax(m_log2, inverse):
+    """The kernels' pass schedule in tensor code (split into register radices,
+    exchange order, twiddle placement) == the port's radix-2 stages
+    (phase_axis_plain, phase_batched_plain) == the JAX package's
+    ntt_jax._ntt_stages, at every length K2 and K3 take, both directions."""
+    m = 1 << m_log2
+    rng = np.random.default_rng(300 + 2 * m_log2 + inverse)
+    x = rng.integers(0, P, (3, m), dtype=np.uint64)
+    x[0, 0], x[-1, -1], x[1, :] = 0, P - 1, P - 1
+    got = NT.pass_model(FT.pack(x), m_log2, inverse)
+    lo, hi = _jax_stages(m_log2)(*FJ.pack(x), ntt_jax._tables_packed(m_log2, inverse))
+    assert np.array_equal(FT.unpack(got), FJ.unpack((lo, hi)))
+    # the phases as the kernels order them: ta before the passes, the table
+    # twiddle, then the scale, after
+    xt = FT.pack(x)
+    tw = FT.pack(rng.integers(0, P, (3, m), dtype=np.uint64))
+    scale = G.inv(m) if inverse else 12345
+    want = NT.phase_axis_plain(xt, 1, inverse, tw=tw, scale=scale)
+    assert torch.equal(FT.mul(FT.mul(got, tw), FT.scalar(scale, got)), want)
+    assert torch.equal(NT.pass_model(xt, m_log2, inverse).T, NT.phase_axis_plain(xt.T.contiguous(), 0, inverse))
+    ta = FT.pack(rng.integers(0, P, (2, m), dtype=np.uint64))
+    t = FT.pack(rng.integers(0, P, (m, 3), dtype=np.uint64))
+    xb = FT.pack(rng.integers(0, P, (2, m, 3), dtype=np.uint64))
+    model = FT.mul(NT.pass_model(FT.mul(xb, ta[:, :, None]).transpose(1, 2), m_log2, inverse).transpose(1, 2), t)
+    assert torch.equal(model, NT.phase_batched_plain(xb, inverse, ta=ta, t=t))
+
+
+@pytest.mark.parametrize("m_log2", [4, 7, 8, 10])
+def test_pass_counts(m_log2):
+    """The schedule keeps the radix-2 butterfly count (m/2 log2 m a vector),
+    multiplies generally only between passes from
+    m = 128 up (15 of the 16 twiddles of each thread), and every other twiddle
+    is a shift."""
+    m = 1 << m_log2
+    for inverse in (False, True):
+        c = NT.pass_counts(m_log2, inverse)
+        assert c["bfly"] == m * m_log2 // 2
+        assert c.get("mul", 0) == (15 * m // 16 if m_log2 >= 7 else 0)
+        pow2 = sum(v for k, v in c.items() if k.startswith("pow2_"))
+        assert 0 < pow2 < m * m_log2 // 2
