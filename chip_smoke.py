@@ -8,12 +8,15 @@ Phases (any failure ends the run with a non-zero exit code):
 
   env           card name and power limit, versions; builds the native host
                 library (g++) and the CUDA kernels (nvcc) from the sources in
-                this checkout.
+                this checkout; ptxas's registers, spills and shared memory of
+                K4 and K8.
   kernels       every hand-written kernel against its plain PyTorch version
                 on the card, exact equality (tolerance 0: integer code), at
                 reduced and at main-path shapes; kernel, plain and bound times.
                 K5/K6 at every n = 2^1 .. 2^13 both ways, and the whole
-                transforms there against the host oracle. K2-K4 also at
+                transforms there against the host oracle; K2-K4 at every
+                m = 2^1 .. 2^10 both ways (K4 also with m1 = 3, below a
+                block's vectors, and 37, odd and over several blocks). K2-K4 also at
                 three-factor shapes that the port's own factorisation never
                 picks (a last factor of 8 and of 32, a full-size phase-A
                 table). K7 at twelve message lengths from 1 to 1024 bytes and
@@ -22,7 +25,9 @@ Phases (any failure ends the run with a non-zero exit code):
                 phases on the tensor cores) at reduced shapes and at the
                 probes' shapes: K8 also against torch._int_mm, K10 with
                 elements in against K2 on the same input, the folded forward
-                NTT (K2, K3, K11) against forward_ntt at 2^20 and 2^23.
+                NTT (K2, K3, K11) against forward_ntt at 2^20 and 2^23; K8
+                also at M, K, N that are multiples of 64 but not of its
+                256 x 128 tile and 128-byte k chunk.
   prove         T = 2^20, b = 512, tau = 8 on the device-resident route:
                 generate_trace -> partition_trace -> commit_blocks ->
                 StarkV1.prove (on the card) -> StarkV1.verify; a tampered
@@ -76,7 +81,8 @@ Phases (any failure ends the run with a non-zero exit code):
                 built kernels and a one-primitive probe and prints the
                 instruction counts, by issue pipe, that the operation bounds
                 of the kernels phase rest on, with a sha256 of each kernel's
-                instructions; the text goes to chiprun_out/sass/. With
+                instructions, and K4's instructions per element by pipe; the
+                text goes to chiprun_out/sass/. With
                 --sass-csrc DIR (the ops/csrc of another checkout) it builds
                 those sources too and says which kernels are the same code.
 
@@ -217,8 +223,12 @@ def phase_env(state) -> None:
     if not b3.HAVE_NATIVE:
         fail("native host library (g++) did not build or load")
     t1 = time.time()
+    # ptxas's registers, spills and shared memory of K4 and K8, built beside the library
+    ptxas = _ptxas_start(("ntt_last.cu", "i8_gemm.cu"))
     _kernels.lib()
     log(f"[env] set-up: native host lib {t1 - t0:.1f} s, CUDA kernels {_kernels.build_seconds:.1f} s")
+    for func, usage in sorted(_ptxas_usage(ptxas)[1].items()):
+        log(f"[env] ptxas {func}: {' | '.join(usage)}")
 
 
 def _field_rand(shape, gen, dev):
@@ -293,7 +303,7 @@ def phase_kernels(state) -> None:
 
     # ---- K2-K4: the phases of n = 2^14, 2^15 (two-factor), 2^17, 2^18, 2^20 inverse, 2^23 forward
     def bound(n_el, m_log2, twiddles, table_el):
-        """The radix-2 bound (K4's design, and K2/K3's first; their bound_radix2_ms):
+        """The radix-2 bound of K2-K4's first design (their bound_radix2_ms):
         a phase reads and writes each element once (16 B) and its tables
         once; an element takes m_log2 / 2 butterflies (mul, add, sub) and
         `twiddles` further multiplies."""
@@ -304,7 +314,7 @@ def phase_kernels(state) -> None:
         return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations")
 
     def bound_design(n_el, m_log2, inverse, twiddles, table_el):
-        """The bound of K2/K3's register-pass design: the same bytes; per
+        """The bound of K2-K4's register-pass design: the same bytes; per
         vector of length m the operations of its pass schedule
         (ntt_torch.pass_counts: general products gl::mul_cc, the
         butterflies gl::bfly, mul_pow2 by shift range, neg), plus `twiddles`
@@ -354,8 +364,13 @@ def phase_kernels(state) -> None:
                  NT.phase_batched_plain(x, inverse, ta=ta, t=t), f"{what} [3, {m}, 98] ta, t")
             hold("ntt_phase_batched", NT.phase_batched(x, inverse), NT.phase_batched_plain(x, inverse),
                  f"{what} [3, {m}, 98]")
-    log("[kernels] K2 (axis 0: no, full, periodic twiddle, scale; axis 1) and K3 (with and without ta, t) "
-        "== plain at every m = 2^1 .. 2^10, both directions")
+            # K4: m1 = 3 is below every block's V vectors; 37 spans blocks at m = 1024 and is odd
+            for m1, m2, sc in ((3, 5, scale), (37, 6, 1), (64, 3, scale)):
+                x = _field_rand((m1, m2, m), gen, dev)
+                hold("ntt_phase_last", NT.phase_last(x, inverse, scale=sc), NT.phase_last_plain(x, inverse, scale=sc),
+                     f"{what} [{m1}, {m2}, {m}] scale {sc}")
+    log("[kernels] K2 (axis 0: no, full, periodic twiddle, scale; axis 1), K3 (with and without ta, t) "
+        "and K4 (m1 = 3, 37, 64; with and without scale) == plain at every m = 2^1 .. 2^10, both directions")
 
     timed_2_20 = {}
     for n_log2, inverse in ((14, False), (14, True), (15, False), (15, True), (17, False), (17, True),
@@ -395,10 +410,10 @@ def phase_kernels(state) -> None:
             res = x3.reshape(n)
             if main:
                 # times at the main-path shapes: the coset NTT (2^23) and the
-                # base inverse NTT (2^20) of a T = 2^20 prove. K4 is unchanged
-                # in this design: its time is the control for the card.
-                # K2/K3: bound_ms counts their design's operations,
-                # bound_radix2_ms the radix-2 count of their first design.
+                # base inverse NTT (2^20) of a T = 2^20 prove. bound_ms counts
+                # the register-pass design's operations, bound_radix2_ms the
+                # radix-2 count of the first design. K2/K3 are unchanged
+                # since their redesign: their times are the control for the card.
                 for name, fn, plain, shp, mlog, ntw, tab in (
                     ("ntt_phase_axis",
                      lambda: NT.phase_axis(x0, 0, inverse, tw=tb, tw_period=m3),
@@ -413,21 +428,20 @@ def phase_kernels(state) -> None:
                     ("ntt_phase_last",
                      lambda: NT.phase_last(x2, inverse, scale=inv_n),
                      lambda: NT.phase_last_plain(x2, inverse, scale=inv_n),
-                     f"int64 [{m1}, {m2}, {m3}] -> [{m3}, {m2}, {m1}]",
-                     l3, 0, m3 // 2),
+                     f"int64 [{m1}, {m2}, {m3}] -> [{m3}, {m2}, {m1}]" + (", scale n^-1" if inverse else ""),
+                     l3, int(inv_n != 1), m3 if l3 >= 7 else 0),
                 ):
                     ms = time_cuda(fn, 20)
                     plain_ms = time_cuda(plain, 1)
                     # graph_ms: the same launches replayed from a CUDA graph, without the
                     # wrapper's host time (which exceeds the device time at 2^20)
                     row = dict(shape=shp, ms=ms, graph_ms=time_cuda_graph(fn, 20), plain_ms=plain_ms)
-                    if name == "ntt_phase_last":
-                        row["bound_ms"], row["bound_by"] = bound(n, mlog, ntw, tab)
-                    else:
-                        row["bound_ms"], row["bound_by"] = bound_design(n, mlog, inverse, ntw, tab)
-                        row["bound_radix2_ms"] = bound(n, mlog, ntw, tab)[0]
+                    row["bound_ms"], row["bound_by"] = bound_design(n, mlog, inverse, ntw, tab)
+                    # the radix-2 count of the first design (K4's table was w_m^k, m/2 elements)
+                    row["bound_radix2_ms"] = bound(n, mlog, ntw, m3 // 2 if name == "ntt_phase_last" else tab)[0]
                     if n_log2 == 23:
-                        kern[name] = dict(name=name, route="cuda", source="sezkp_tpu_torch/ops/csrc/ntt_phases.cu",
+                        src = "ntt_last.cu" if name == "ntt_phase_last" else "ntt_phases.cu"
+                        kern[name] = dict(name=name, route="cuda", source="sezkp_tpu_torch/ops/csrc/" + src,
                                           **row, library_ms=None)
                     else:
                         timed_2_20[name] = row
@@ -714,7 +728,10 @@ def _kernels_digit_form(kern, gen, dev) -> None:
         return x
 
     # ---- K8 i8_gemm
-    for M, K, N, nrep in ((64, 64, 64, 1), (128, 192, 320, 3), (256, 256, 8 * 4096, 8), (1024, 1024, 4096, 1)):
+    # M, K, N multiples of 64 but not of the 256 (m) x 128 (n) tile and the 128-byte k chunk:
+    # (128, 192, 320), (192, 320, 576), (320, 64, 4160)
+    for M, K, N, nrep in ((64, 64, 64, 1), (128, 192, 320, 3), (192, 320, 576, 2), (320, 64, 4160, 5),
+                          (256, 256, 8 * 4096, 8), (1024, 1024, 4096, 1)):
         w, x = _rand_i8((nrep * M, K), M + N, dev), _rand_i8((K, N), M + N + 1, dev)
         for epilogue in ("int32", "and127"):
             want = ND.i8_gemm_plain(w, x, nrep, epilogue)
@@ -737,14 +754,17 @@ def _kernels_digit_form(kern, gen, dev) -> None:
     macs = nd * m * m * nd * other
     bnd, by = _bound(w.numel() + x.numel() + 4 * m * nd * other, 2 * macs)
     lib = _int_mm_layouts(lambda xb: _int_mm_sum(w, xb, nd), x, got, 10, "the probe's shape")
+    ms8 = time_cuda(lambda: ND.i8_gemm(w, x, nd), 10)
+    fused8 = time_cuda(lambda: ND.i8_gemm(w, x, nd, "int32", True), 10)
     kern["i8_gemm"] = dict(
         name="i8_gemm", route="cuda", source="sezkp_tpu_torch/ops/csrc/i8_gemm.cu",
         replaces="scripts/exp_mxu_peak.py:76", also_replaces=["scripts/exp_mxu_peak.py:105", "scripts/exp_mxu_peak.py:128"],
         shape=f"int8 [{nd}*{m}, {m}] @ int8 [{m}, {nd}*{other}] -> int32 [{m}, {nd}*{other}], {nd} products summed",
-        ms=time_cuda(lambda: ND.i8_gemm(w, x, nd), 10),
-        fused_ms=time_cuda(lambda: ND.i8_gemm(w, x, nd, "int32", True), 10),
+        ms=ms8, fused_ms=fused8,
         plain_ms=time_cuda(lambda: ND.i8_gemm_plain(w, x, nd), 1),
         bound_ms=bnd, bound_by=by, **lib,
+        # the share of the bound reached and the int8 rate, both of the fused order
+        bound_share=bnd / fused8, tops=2 * macs / fused8 * 1e-9,
     )
     del w, x, got
     # the large square products of the probe, at 2^20 columns: both epilogues
@@ -761,9 +781,12 @@ def _kernels_digit_form(kern, gen, dev) -> None:
         bnd, by = _bound(w.numel() + x.numel() + 4 * mm * (1 << 20), ops)
         bnd8, by8 = _bound(w.numel() + x.numel() + mm * (1 << 20), ops)
         got = ND.i8_gemm(w, x)
+        ms_b = time_cuda(lambda: ND.i8_gemm(w, x), 5)
+        ms_b8 = time_cuda(lambda: ND.i8_gemm(w, x, 1, "and127"), 5)
         big[f"at_{mm}x{mm}x2^20"] = dict(
-            ms=time_cuda(lambda: ND.i8_gemm(w, x), 5), bound_ms=bnd, bound_by=by,
-            and127_ms=time_cuda(lambda: ND.i8_gemm(w, x, 1, "and127"), 5), and127_bound_ms=bnd8, and127_bound_by=by8,
+            ms=ms_b, bound_ms=bnd, bound_by=by, bound_share=bnd / ms_b, tops=ops / ms_b * 1e-9,
+            and127_ms=ms_b8, and127_bound_ms=bnd8, and127_bound_by=by8, and127_bound_share=bnd8 / ms_b8,
+            and127_tops=ops / ms_b8 * 1e-9,
             plain_ms=time_cuda(lambda: ND.i8_gemm_plain(w, x), 1),
             **_int_mm_layouts(lambda xb: torch._int_mm(w, xb), x, got, 5, what))
         del w, x, got
@@ -774,7 +797,8 @@ def _kernels_digit_form(kern, gen, dev) -> None:
         f"{kern['i8_gemm']['library_ms']:.3f} ms of torch._int_mm ({kern['i8_gemm']['library_layout']}; "
         f"row-major {kern['i8_gemm']['library_row_major_ms']:.3f}, column-major "
         f"{kern['i8_gemm']['library_column_major_ms']:.3f}) at the probe's shape; at [1024, 1024] @ [1024, 2^20]: "
-        + json.dumps({k: round(v, 3) for k, v in big["at_1024x1024x2^20"].items() if k.startswith(("ms", "library_")) and isinstance(v, float)}))
+        + json.dumps({k: round(v, 3) for k, v in big["at_1024x1024x2^20"].items()
+                      if k.startswith(("ms", "and127_ms", "library_", "bound_share", "tops")) and isinstance(v, float)}))
 
     # ---- K9 gl_digits
     for m, other in ((32, 32), (64, 160), (1024, 96), (256, 32768)):
@@ -879,6 +903,12 @@ def _kernels_digit_form(kern, gen, dev) -> None:
     refuses("digit_dft with m = 16", lambda: ND.digit_dft(z64[:16].contiguous(), ND.w_digits(4, False, 1, dev), elements=True))
     refuses("digit_dft_last of a CPU table", lambda: ND.digit_dft_last(z64, torch.zeros((1, 64, 8, 64), dtype=torch.int8)))
     log("[kernels] K8-K11 refuse a wrong dtype, shapes the kernels do not take, and operands on two devices")
+    # an operand off TMA's 16-byte boundary: the wrapper copies it to an aligned one
+    wa = torch.randint(-128, 128, (64, 128), generator=gen, device=dev, dtype=torch.int8)
+    xa = torch.randint(-128, 128, (128 * 64 + 8,), generator=gen, device=dev, dtype=torch.int8)[8:].view(128, 64)
+    if not torch.equal(ND.i8_gemm(wa, xa).cpu(), ND.i8_gemm_plain(wa.cpu(), xa.cpu())):
+        fail("i8_gemm of an operand 8 bytes off a 16-byte boundary != its plain version")
+    log("[kernels] K8 of an operand 8 bytes off a 16-byte boundary == its plain version")
     # the digit tables (134 MB of folded table at 2^23) are no part of a prove:
     # drop them, so that the prove phase's peak device memory is the prove's
     ND._tables.clear()
@@ -923,8 +953,41 @@ def _short(name: str) -> str:
     """ntt_phase_axis_kernel<7,0,0> for a mangled K2/K3/K4 name; other names as they are."""
     k = re.search(r"(ntt_phase_\w+?_kernel)(?:I((?:L[ib]\d+E)+)E)?", name)
     if not k:
-        return name
+        i8 = re.search(r"\d(i8_[a-z_]+_kernel)", name)
+        return i8.group(1) if i8 else name
     return f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2) or ''))}>"
+
+
+def _ptxas_start(sources):
+    """One nvcc with ptxas's report (-Xptxas -v) for each of ops/csrc's
+    `sources`, all started at once; objects under sezkp_tpu_torch/_build/ptxas/."""
+    from sezkp_tpu_torch.ops import _kernels
+
+    nvcc = _kernels._find_nvcc()
+    out = os.path.join(_kernels._BUILD_DIR, "ptxas")
+    os.makedirs(out, exist_ok=True)
+    return [(src, subprocess.Popen([nvcc, *_kernels._NVCC_FLAGS, "-Xptxas", "-v", "-I", _kernels._CSRC, "-c",
+                                    os.path.join(_kernels._CSRC, src), "-o", os.path.join(out, src + ".o")],
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src in sources]
+
+
+def _ptxas_usage(procs):
+    """(ptxas's whole report, {kernel: [its registers, spills and shared memory]})
+    of `_ptxas_start`'s builds."""
+    text, func, usage = "", None, {}
+    for src, p in procs:
+        out, _ = p.communicate()
+        if p.returncode:
+            fail(f"nvcc -Xptxas -v {src} failed\n{out[-4000:]}")
+        text += out
+        for line in out.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                func = _short(m.group(1))
+            elif func and ("Used" in line or "spill" in line):
+                usage.setdefault(func, []).append(line.split("ptxas info    :")[-1].strip())
+    return text, usage
 
 
 def phase_sass(state) -> None:
@@ -973,19 +1036,9 @@ def phase_sass(state) -> None:
                    + f"; GL_BFLY_OPS = {pair('bfly')}; GL_MULCC_OPS = {pair('mul_cc')}")
 
     # registers, spills and shared memory of K2-K4's instantiations (ptxas)
-    obj = os.path.join(_kernels._BUILD_DIR, "ntt_phases_v.o")
-    ptxas = subprocess.run([nvcc, *_kernels._NVCC_FLAGS, "-Xptxas", "-v", "-I", _kernels._CSRC, "-c",
-                            os.path.join(_kernels._CSRC, "ntt_phases.cu"), "-o", obj],
-                           capture_output=True, text=True, check=True).stderr
+    ptxas, usage = _ptxas_usage(_ptxas_start(("ntt_phases.cu", "ntt_last.cu")))
     with open("chiprun_out/sass/ptxas_ntt_phases.txt", "w") as f:
         f.write(ptxas)
-    func, usage = None, {}
-    for line in ptxas.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            func = _short(m.group(1))
-        elif func and ("Used" in line or "spill" in line):
-            usage.setdefault(func, []).append(line.split("ptxas info    :")[-1].strip())
     summary += [f"ptxas {f}: {' | '.join(u)}" for f, u in sorted(usage.items())]
 
     text, funcs = _sass_functions(cuobjdump, _kernels.build())
@@ -1008,6 +1061,18 @@ def phase_sass(state) -> None:
                 body = [o for a, o, _ in ins if lo <= a <= addr]
                 out.append(f"   loop 0x{lo:04x}..0x{addr:04x}: {len(body)} instructions "
                            + json.dumps(Counter(body).most_common()))
+    # K4 has no loop: its instructions per element are the kernel's over the
+    # E = min(m, 16) elements a thread holds
+    for name, ins in funcs.items():
+        short = _short(name)
+        k4 = re.fullmatch(r"ntt_phase_last_kernel<(\d+),(\d+)>", short)
+        if k4:
+            per = min(1 << int(k4.group(1)), 16)
+            pipes = Counter(_pipe(op) for _, op, _ in ins)
+            units = Counter(_unit(op) for _, op, _ in ins)
+            summary.append(f"K4 {short}: per element imad-family {pipes['imad'] / per:.1f}, "
+                           f"alu {units['alu'] / per:.1f}, memory {units['mem'] / per:.1f}, "
+                           f"control {units['ctl'] / per:.1f}")
     with open("chiprun_out/sass/loops.txt", "w") as f:
         f.write("\n".join(out) + "\n")
     for line in out:

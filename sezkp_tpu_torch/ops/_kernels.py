@@ -25,10 +25,13 @@ _BUILD_DIR = os.path.abspath(
     os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "_build")
 )
 _SOURCES = (
-    "blake3_compress.cu", "blake3_chain.cu", "ntt_phases.cu", "ntt_small.cu",
+    "blake3_compress.cu", "blake3_chain.cu", "ntt_phases.cu", "ntt_last.cu", "ntt_small.cu",
     "i8_gemm.cu", "gl_digits.cu", "digit_dft.cu",
 )
-_HEADERS = ("blake3_round.cuh", "goldilocks.cuh", "ntt_smem.cuh", "ntt_reg.cuh", "i8_mma.cuh")
+_HEADERS = (
+    "blake3_round.cuh", "goldilocks.cuh", "ntt_smem.cuh", "ntt_reg.cuh", "i8_mma.cuh",
+    "smem_opt_in.cuh", "tma_wgmma.cuh",
+)
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -118,7 +121,7 @@ def lib() -> ctypes.CDLL:
     L.sezkp_blake3_chain.argtypes = [vp, vp, ll, i, i, vp]
     L.sezkp_ntt_phase_axis.argtypes = [vp, vp, i, ll, i, i, vp, vp, ll, ull, vp]
     L.sezkp_ntt_phase_batched.argtypes = [vp, vp, i, i, i, i, vp, vp, vp, vp]
-    L.sezkp_ntt_phase_last.argtypes = [vp, vp, i, i, i, vp, ull, vp]
+    L.sezkp_ntt_phase_last.argtypes = [vp, vp, i, i, i, i, vp, ull, vp]
     L.sezkp_ntt_small_cols.argtypes = [vp, vp, i, i, vp, vp, vp]
     L.sezkp_ntt_small_rows.argtypes = [vp, vp, i, i, vp, ull, vp]
     L.sezkp_i8_gemm.argtypes = [vp, vp, vp, i, i, ll, i, i, i, vp]

@@ -14,7 +14,7 @@
 //                     compile-time constant the shifts fold to constants.
 //   bfly(u, t)        (u + t, u - t): the butterfly of the register passes.
 //   mul_cc            mul, with the fold as below: the register passes'
-//                     general products (K4-K6 keep mul).
+//                     general products (K5, K6 keep mul).
 //
 // mul_pow2, mul_cc and bfly write their borrows and carries out as PTX
 // carry chains (sub_pb, add_ce), where C++ compares 64-bit values instead

@@ -1,8 +1,9 @@
-// K2 ntt_phase_axis, K3 ntt_phase_batched, K4 ntt_phase_last: the phases of
-// the multi-step Goldilocks NTT.
+// K2 ntt_phase_axis, K3 ntt_phase_batched: the first two phases of the
+// multi-step Goldilocks NTT (the last, K4 ntt_phase_last, is in ntt_last.cu on
+// the same register passes).
 //
-// They replace the three Pallas kernels of sezkp_tpu/ops/ntt_mxu.py
-// (_dft_call/_dft_kernel, _batched_call/_batched_kernel, _last_call_t). Each
+// They replace two Pallas kernels of sezkp_tpu/ops/ntt_mxu.py
+// (_dft_call/_dft_kernel, _batched_call/_batched_kernel). Each
 // computes what its counterpart computes -- an exact length-m DFT
 // Y[k] = sum_j X[j] w_m^(jk) along one axis of a 2-D or 3-D view, with the
 // inter-phase twiddle multiplies fused in -- but not the way it does: the
@@ -35,27 +36,17 @@
 // axis 1): the tile is staged through shared memory (odd row pitch) in both
 // directions, one vector a thread; up to m = 16 a thread keeps a whole
 // vector and touches no shared memory.
-//
-// K4 keeps the first design (ntt_smem.cuh): a tile of vectors in shared
-// memory as u64, log2(m) radix-2 stages with a barrier each, modular
-// multiplies through __umul64hi, about 35 instructions of index arithmetic a
-// butterfly beside its 56 of field arithmetic.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "ntt_reg.cuh"
-#include "ntt_smem.cuh"
-
-using namespace ntt_smem;
+#include "smem_opt_in.cuh"
 
 namespace {
 
+using ntt_reg::ld16;
 using ntt_reg::Plan;
 using ntt_reg::static_for;
-
-__device__ __forceinline__ ulonglong2 ld16(const uint64_t* p) {
-  return __ldg(reinterpret_cast<const ulonglong2*>(p));
-}
 
 // One 16-byte store (a struct assignment may come out as two 8-byte stores).
 __device__ __forceinline__ void st16(uint64_t* p, uint64_t a, uint64_t b) {
@@ -218,53 +209,6 @@ ntt_phase_batched_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ 
                     cols, -1, 1);
 }
 
-// ---- K4: x viewed [m1, m2, mc] = X[k1, k2, b3] -> y [mc, m2, m1] =
-// Y[k3, k2, k1]: DFT along the last axis, times scale, written transposed so
-// that the flat output is the natural order y[k1 + m1*k2 + m1*m2*k3]. The
-// transpose happens in shared memory: loads run along b3, stores along k1.
-// grid = (m1 / nvec, m2).
-__global__ void __launch_bounds__(kThreads)
-ntt_phase_last_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y, int m1, int m2,
-                      int mc_log2, int nvec, const uint64_t* __restrict__ wp_g, uint64_t scale) {
-  extern __shared__ uint64_t smem[];
-  const int mc = 1 << mc_log2;
-  uint64_t* wp = smem;
-  uint64_t* s = smem + (mc >> 1);
-  load_wp(wp, wp_g, mc_log2);
-  const int k1_0 = blockIdx.x * nvec;
-  const int k2 = blockIdx.y;
-  const int sv = mc + 1;
-  const int total = mc * nvec;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int j = idx % mc, v = idx / mc;
-    s[v * sv + bitrev(j, mc_log2)] = x[((long long)(k1_0 + v) * m2 + k2) * mc + j];
-  }
-  __syncthreads();
-  smem_ntt<false>(s, wp, mc_log2, nvec, 1, sv);
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int v = idx % nvec, k3 = idx / nvec;
-    uint64_t val = s[v * sv + k3];
-    if (scale != 1) val = gl::mul(val, scale);
-    y[((long long)k3 * m2 + k2) * m1 + k1_0 + v] = val;
-  }
-}
-
-// Shared memory above the 48 KB default needs the kernel's opt-in, once per
-// kernel and device (`done`: one bit a device), so that no launch after the
-// first, and none captured into a CUDA graph, makes the call.
-template <class K>
-cudaError_t smem_opt_in(K kernel, size_t bytes, unsigned long long& done) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err) return err;
-  const unsigned long long bit = 1ULL << (dev & 63);
-  if (done & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (!err) done |= bit;
-  return err;
-}
-
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 template <int L, bool INV>
@@ -353,17 +297,4 @@ extern "C" int sezkp_ntt_phase_batched(const void* x, void* y, int m1, int mc_lo
   if (!aligned16(x) || !aligned16(y) || !aligned16(t) || (m_log2 >= 7 && !pt)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   NTT_DISPATCH(launch_batched, x, y, m1, cols, pt, ta, t, st)
-}
-
-extern "C" int sezkp_ntt_phase_last(const void* x, void* y, int m1, int m2, int mc_log2,
-                                    const void* wp, unsigned long long scale, void* stream) {
-  if (mc_log2 < 1 || mc_log2 > 10 || m1 < 1 || m2 < 1 || m2 > 65535) return (int)cudaErrorInvalidValue;
-  const int mc = 1 << mc_log2;
-  const int nvec = pick_nvec(mc, m1);
-  const size_t smem = smem_bytes(mc, nvec, true);
-  dim3 grid((unsigned)(m1 / nvec), (unsigned)m2);
-  ntt_phase_last_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint64_t*)x, (uint64_t*)y, m1, m2, mc_log2, nvec, (const uint64_t*)wp,
-      (uint64_t)scale);
-  return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // Register-resident radix passes of the Goldilocks NTT: the core of K2
-// ntt_phase_axis and K3 ntt_phase_batched (ntt_phases.cu).
+// ntt_phase_axis and K3 ntt_phase_batched (ntt_phases.cu) and of K4
+// ntt_phase_last (ntt_last.cu).
 //
 // A length-m DFT (m = 2^L, L <= 10) of one vector is split into passes over
 // registers. Thread t of the vector holds E = min(m, 16) elements and, with
@@ -34,6 +35,11 @@
 #include "goldilocks.cuh"
 
 namespace ntt_reg {
+
+// One 16-byte load through the read-only path.
+__device__ __forceinline__ ulonglong2 ld16(const uint64_t* p) {
+  return __ldg(reinterpret_cast<const ulonglong2*>(p));
+}
 
 // A compile-time index that converts to int on the device too.
 template <int I>

@@ -22,7 +22,7 @@
 // which the card could do in tens of nanoseconds; a launch takes
 // microseconds, so launch latency, not bytes or operations, is what these
 // kernels cost. The design is therefore the simplest that is right, with the
-// butterfly code shared with K2-K4 and tiles inside the 48 KB default shared
+// butterfly code of K2-K4's first design (ntt_smem.cuh) and tiles inside the 48 KB default shared
 // memory. What a launch does cost on the device is the serial chain of
 // stages inside a block, so a block takes a small tile (512 elements where
 // the transform length allows: one butterfly per thread and stage) and the

@@ -1,6 +1,6 @@
 // Shared-memory radix-2 NTT over Goldilocks: the butterfly code and the tile
-// sizing that the phase kernels (ntt_phases.cu: K2-K4) and the small-n
-// kernels (ntt_small.cu: K5, K6) have in common.
+// sizing of the small-n kernels (ntt_small.cu: K5, K6). It was the first
+// design of K2-K4 too, which now run the register passes of ntt_reg.cuh.
 #pragma once
 #include <stddef.h>
 #include <stdint.h>

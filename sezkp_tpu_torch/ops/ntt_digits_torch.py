@@ -14,7 +14,9 @@ the tensor cores, gathered into 15 diagonals, and one recombination mod p.
 Kernels (CUDA C++, ops/csrc/), each with its plain version here:
 
 - **K8 ``i8_gemm``** (i8_gemm.cu): ``epilogue(sum_j W_j[M, K] @ X[K, N])``,
-  int8 in, int32 or ``& 127`` int8 out. Plain: ``i8_gemm_plain``.
+  int8 in, int32 or ``& 127`` int8 out; a persistent TMA + wgmma kernel on
+  the swapped product out^T = X^T W^T. Plain: ``i8_gemm_plain``; its tile
+  schedule in tensor code: ``i8_gemm_model``.
 - **K9 ``gl_digits``** (gl_digits.cu): elements -> digits, as the k-major
   stack int8 ``[NDIG, other, m]`` that K10 loads, or with ``tile`` as the
   tiled stack int8 ``[m, NDIG * other]`` of the Pallas probe. Plain:
@@ -210,6 +212,65 @@ def i8_gemm_plain(w, x, nrep: int = 1, epilogue: str = "int32"):
     return acc.to(torch.int32)
 
 
+# K8's tiles (csrc/i8_gemm.cu): output rows m, output columns n, k chunk (bytes)
+I8_TILE = (256, 128, 128)
+
+
+def i8_n_order(bn: int = 128) -> torch.Tensor:
+    """[bn]: the column n of an X tile that row r of K8's A operand (X^T) is.
+    Warpgroup wg takes n from 64 wg; its warp w4 the 16 from 16 w4, and lane
+    (g, q) rows 16 w4 + g and 16 w4 + g + 8 of the product, which are the
+    neighbouring columns 2g and 2g + 1 (one 16-bit read)."""
+    r = torch.arange(bn)
+    wg, w4, g, h = r // 64, r % 64 // 16, r % 8, r % 16 // 8
+    return 64 * wg + 16 * w4 + 2 * g + h
+
+
+def i8_gemm_model(w, x, nrep: int = 1, epilogue: str = "int32", fuse: bool = False, grid: int = 3):
+    """K8's schedule in tensor code (csrc/i8_gemm.cu), for int8 w [nrep * M, K]
+    and x [K, N] of any size: the swapped product out^T = X^T W^T; `grid`
+    persistent blocks, block b taking output tiles b, b + grid, ... (tile t
+    at M tile t % mtiles, column tile t // mtiles; 256 m x 128 n); per tile
+    the steps over (j, k chunk) in `fuse`'s order (fuse: k chunks outside,
+    j inside, one set of X fragments for all j), each a box of W at (row
+    j*M + m0, k kc*BK) and of X at (k kc*BK, n n0), zeros outside the tensors
+    (TMA's fill: rows past M in the last M tile are the next block's W rows,
+    or zeros after the last, and fall outside the store); the A rows in the
+    kernel's order of n (``i8_n_order``), undone by the epilogue; the sums
+    wrap as int32; the store clipped at (M, N). Raises if an output element
+    is written other than once."""
+    _check_epilogue(epilogue, ("int32", "and127"))
+    bm, bn, bk = I8_TILE
+    M, K, N = w.shape[0] // nrep, w.shape[1], x.shape[1]
+    mtiles, ntiles_n, kchunks = -(-M // bm), -(-N // bn), -(-K // bk)
+    wp = torch.zeros((nrep * M + bm, kchunks * bk), dtype=torch.float64)
+    wp[: nrep * M, :K] = w.to(torch.float64)
+    xp = torch.zeros((kchunks * bk, ntiles_n * bn), dtype=torch.float64)
+    xp[:K, :N] = x.to(torch.float64)
+    order = [(s % nrep, s // nrep) if fuse else (s // kchunks, s % kchunks) for s in range(nrep * kchunks)]
+    perm = i8_n_order(bn)
+    out = torch.zeros((M, N), dtype=torch.int64)
+    writes = torch.zeros((M, N), dtype=torch.int64)
+    for b in range(grid):
+        for t in range(b, mtiles * ntiles_n, grid):
+            m0, n0 = (t % mtiles) * bm, (t // mtiles) * bn
+            # A = X^T rows in the kernel's order, B = W^T
+            a = torch.stack([xp[kc * bk : (kc + 1) * bk, n0 : n0 + bn].T[perm] for _, kc in order])
+            bt = torch.stack([wp[j * M + m0 : j * M + m0 + bm, kc * bk : (kc + 1) * bk] for j, kc in order])
+            dt = torch.bmm(a, bt.transpose(1, 2)).to(torch.int64).sum(0)  # D^T [n, m], exact: |sum| < 2^53
+            acc = torch.empty_like(dt)
+            acc[perm] = dt  # the epilogue's store by n
+            acc = acc.T
+            rows, cols = min(bm, M - m0), min(bn, N - n0)
+            out[m0 : m0 + rows, n0 : n0 + cols] = acc[:rows, :cols]
+            writes[m0 : m0 + rows, n0 : n0 + cols] += 1
+    if not bool((writes == 1).all()):
+        raise AssertionError("K8's stores do not cover the output once each")
+    if epilogue == "and127":
+        return (out & 127).to(torch.int8)
+    return out.to(torch.int32)
+
+
 def digit_dft_plain(src, w, epilogue: str = "recombine", elements: bool = False):
     """Plain PyTorch version of K10. src: the k-major digit stack int8
     [NDIG, other, m], or with elements=True the field tensor [m, other]."""
@@ -255,7 +316,8 @@ def _need(t: torch.Tensor, dtype, dims: int, what: str) -> None:
 def i8_gemm(w, x, nrep: int = 1, epilogue: str = "int32", fuse: bool = False):
     """K8 wrapper. `fuse` picks the kernel's loop order (one product over the
     stacked weights, or nrep products one after the other); the result is the
-    same. On the card M, K and N must be multiples of 64."""
+    same. On the card M, K and N must be multiples of 64; an operand that
+    is not 16-byte aligned (TMA's rule) is copied to one that is."""
     _check_epilogue(epilogue, ("int32", "and127"))
     _need(w, torch.int8, 2, "w")
     _need(x, torch.int8, 2, "x")
@@ -266,6 +328,7 @@ def i8_gemm(w, x, nrep: int = 1, epilogue: str = "int32", fuse: bool = False):
     M, K, N = w.shape[0] // nrep, w.shape[1], x.shape[1]
     if M % 64 or K % 64 or N % 64:
         raise ValueError("i8_gemm on the card takes M, K and N that are multiples of 64")
+    w, x = (t.clone() if t.data_ptr() % 16 else t for t in (w, x))
     out = torch.empty((M, N), dtype=torch.int32 if epilogue == "int32" else torch.int8, device=x.device)
     with torch.cuda.device(x.device):
         rc = _kernels.lib().sezkp_i8_gemm(

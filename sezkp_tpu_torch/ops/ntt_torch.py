@@ -30,26 +30,31 @@ n1 = 2^(log2(n) // 2), two launches (csrc/ntt_small.cu):
   times n^-1 for the inverse, stored as ``[n2, n1]`` (natural order).
 
 At these sizes (at most 64 KB of data) a launch's latency is the cost, not its
-bytes or operations. K2-K4 are in csrc/ntt_phases.cu. Each moves 16 B per
+bytes or operations. K2 and K3 are in csrc/ntt_phases.cu, K4 in
+csrc/ntt_last.cu. Each moves 16 B per
 element per phase plus the twiddle reads; the integer ALU pipe of an H100,
 not its memory, is the nearer bound at the main path's shapes (chip_smoke.py
 computes both from instruction counts read in the sm_90a disassembly).
 
-- **K4** (and K5/K6) run log2(m) radix-2 stages over a tile in shared
-  memory, a barrier after each: log2(m)/2 butterflies an element of 56 field
+- **K5/K6** run log2(m) radix-2 stages over a tile in shared memory, a
+  barrier after each: log2(m)/2 butterflies an element of 56 field
   instructions (multiply 34, add 14, subtract 8; 39 on the ALU pipe) and
-  about 35 more of index arithmetic on run-time sizes.
-- **K2, K3** run register-resident radix-16 passes (csrc/ntt_reg.cuh;
-  ``pass_model`` below is the same schedule in tensor code), templated on m
-  and the direction: no index arithmetic on run-time values, one shared
-  memory exchange and one barrier a tile (two from m = 512), and every
-  twiddle inside a length-16 DFT, and between passes up to m = 64, a power of
-  two (``gl::mul_pow2``: shifts, no 64-bit product; 15 of a length-16 DFT's
-  32 butterflies have none). General products remain for the twiddles
-  between passes from m = 128 (``_pass_twiddles``), the fused tables and the
-  scale. Loads and stores are 16 B: on the card K2 along axis 0 and K3 take
-  an even column count, a periodic twiddle's period is a power of two >= 2,
-  and every tensor is 16-byte aligned.
+  about 35 more of index arithmetic on run-time sizes. K2-K4 had that design
+  first.
+- **K2-K4** run register-resident radix-16 passes (csrc/ntt_reg.cuh;
+  ``pass_registers`` and ``emit_index`` below are the same schedule in
+  tensor code), templated on m and the direction: no index arithmetic on
+  run-time values, one shared memory exchange and one barrier a tile (two
+  from m = 512), and every twiddle inside a length-16 DFT, and between
+  passes up to m = 64, a power of two (``gl::mul_pow2``: shifts, no 64-bit
+  product; 15 of a length-16 DFT's 32 butterflies have none). General
+  products remain for the twiddles between passes from m = 128
+  (``_pass_twiddles``), the fused tables and the scale. Loads and stores are
+  16 B where the layout allows: on the card K2 along axis 0 and K3 take an
+  even column count, a periodic twiddle's period is a power of two >= 2,
+  and every tensor is 16-byte aligned. K4 (csrc/ntt_last.cu) stages its
+  input through shared memory and stores its transposed output straight
+  from registers (``phase_last_model`` is its tile in tensor code).
 
 The phase-A twiddle of the three-factor form stays split into
 ``ta`` (rides K3) and a periodic ``tb`` (rides K2): two small tables that stay
@@ -162,7 +167,7 @@ def _t_mid(l_mid: int, l_last: int, inverse: bool, device) -> torch.Tensor:
     return _cached(("tmid", l_mid, l_last, inverse), device, make)
 
 
-# ----------------------- the pass schedule of K2 and K3 -----------------------
+# ----------------------- the pass schedule of K2-K4 -----------------------
 
 # 2^POW2_ROOT_EXP[k] = w_{2^k} (primitive_root_2exp(k)) for k <= 6: 2 has order
 # 192 mod p, so every root of unity of order up to 64 is a power of two. The
@@ -267,11 +272,36 @@ def _twiddle_pow2(a: torch.Tensor, k_log2: int, idx: torch.Tensor, inverse: bool
     return torch.where(idx == 0, a, FT.mul_pow2(a, e))
 
 
-def pass_model(x: torch.Tensor, m_log2: int, inverse: bool, tally=None) -> torch.Tensor:
-    """The DFT along the last axis, length m = 2^m_log2, in the order K2 and
-    K3 compute it (ntt_phases.cu, ntt_reg.cuh): the plain model the kernels'
-    design is rehearsed on without the card. Thread t of a vector holds 16
-    elements (all of them for m <= 16) and runs, with M1 = m / 16:
+def _plan(m_log2: int):
+    """(E, T, NT) of ntt_reg.cuh's Plan<L>: elements a thread holds of a
+    vector, threads of a vector, threads of a block."""
+    e = 1 << min(m_log2, REG_LOG2)
+    return e, (1 << m_log2) // e, 512 if m_log2 == 10 else 256
+
+
+def emit_index(m_log2: int) -> torch.Tensor:
+    """[T, E] int64: the output index k that register q of thread t holds
+    after the last pass, as ntt_reg.cuh's run_passes emits it (emit(k, q))."""
+    logs = _pass_logs(m_log2)
+    e, T, _ = _plan(m_log2)
+    t = torch.arange(T)[:, None]
+    q = torch.arange(e)[None, :]
+    if len(logs) == 1:
+        return q.expand(T, e).clone()
+    if len(logs) == 2:
+        d = e // T  # transforms of length T a thread
+        return t * d + q // T + e * (q % T)
+    m2 = 1 << logs[2]
+    d = t * (e // m2) + q // m2
+    return d // e + e * (d % e) + e * e * (q % m2)
+
+
+def pass_registers(x: torch.Tensor, m_log2: int, inverse: bool, tally=None) -> torch.Tensor:
+    """The DFT along the last axis, length m = 2^m_log2, in the order K2-K4
+    compute it (ntt_phases.cu, ntt_last.cu, ntt_reg.cuh), left where the
+    kernels leave it: [..., T, E], register q of thread t after the last pass
+    (``emit_index`` says which output each one is). Thread t of a vector holds
+    E = 16 elements (all of them for m <= 16) and runs, with M1 = m / 16:
 
     - pass 1: x[j1*M1 + t] for j1 < 16 -> a length-16 DFT in registers
       -> times w_m^(k1 t) (powers of two for m <= 64, ``mul_pow2``; the table
@@ -291,7 +321,7 @@ def pass_model(x: torch.Tensor, m_log2: int, inverse: bool, tally=None) -> torch
     T = m >> logs[0]
     a = _reg_dft(x.reshape(batch + (1 << logs[0], T)).transpose(-1, -2), logs[0], inverse, tally)
     if len(logs) == 1:
-        return a.reshape(batch + (m,))
+        return a  # [..., 1, m]
     t = torch.arange(T, device=x.device)[:, None]
     k1 = torch.arange(16, device=x.device)[None, :]
     if m_log2 <= 6:
@@ -302,15 +332,67 @@ def pass_model(x: torch.Tensor, m_log2: int, inverse: bool, tally=None) -> torch
             tally.add("mul", a[..., 1:])
     pos = a.transpose(-1, -2).reshape(batch + (m,))  # position k1*M1 + t
     if len(logs) == 2:
-        y = _reg_dft(pos.reshape(batch + (T, 16 // T, T)), logs[1], inverse, tally)
-        return y.reshape(batch + (16, T)).transpose(-1, -2).reshape(batch + (m,))
+        # [t, i, k2]: thread t's transforms i, register q = i*T + k2
+        return _reg_dft(pos.reshape(batch + (T, 16 // T, T)), logs[1], inverse, tally).reshape(batch + (T, 16))
     m2 = 1 << logs[2]
     q = _reg_dft(pos.reshape(batch + (16, 16, m2)).transpose(-1, -2), REG_LOG2, inverse, tally)
     jj = torch.arange(m2, device=x.device)[:, None]
     k2a = torch.arange(16, device=x.device)[None, :]
     q = _twiddle_pow2(q, m_log2 - REG_LOG2, jj * k2a, inverse, tally)  # [.., k1, jj, k2a]
     y = _reg_dft(q.transpose(-1, -2), logs[2], inverse, tally)  # [.., k1, k2a, k3]
-    return y.transpose(-1, -3).reshape(batch + (m,))
+    # d = 16 k1 + k2a = t*(16/M2) + i, register q = i*M2 + k3
+    return y.reshape(batch + (T, 16))
+
+
+def pass_model(x: torch.Tensor, m_log2: int, inverse: bool, tally=None) -> torch.Tensor:
+    """The DFT along the last axis in the kernels' pass schedule, natural
+    order: ``pass_registers`` stored at ``emit_index``. The plain model the
+    kernels' design is rehearsed on without the card."""
+    regs = pass_registers(x, m_log2, inverse, tally)
+    y = torch.empty(x.shape, dtype=regs.dtype, device=x.device)
+    y[..., emit_index(m_log2).reshape(-1).to(x.device)] = regs.reshape(x.shape)
+    return y
+
+
+def phase_last_model(x: torch.Tensor, inverse: bool, scale: int = 1) -> torch.Tensor:
+    """K4's tile in tensor code (csrc/ntt_last.cu), for x [m1, m2, mc]: block
+    (b, k2) of the grid (ceil(m1 / V), m2) takes the V values of k1 from
+    b * V (rows past m1 are not loaded and not stored: zeros stand in for
+    them here); thread (v, t) = (tid % V, tid // V) holds vector
+    k1 = b*V + v; the register passes (``pass_registers``); the scale; and
+    each register stored by address, straight from registers, at
+    y[(k*m2 + k2)*m1 + k1] with k = ``emit_index``[t, q]. Returns
+    y [mc, m2, m1]; raises if an address is written other than once."""
+    m1, m2, mc = x.shape
+    m_log2 = mc.bit_length() - 1
+    _, T, NT = _plan(m_log2)
+    V = NT // T
+    nblk = -(-m1 // V)
+    xp = torch.zeros((nblk * V, m2, mc), dtype=x.dtype, device=x.device)
+    xp[:m1] = x
+    regs = pass_registers(xp, m_log2, inverse)  # [k1, k2, t, q]
+    if scale != 1:
+        regs = FT.mul(regs, FT.scalar(scale, regs))
+    tid = torch.arange(NT, device=x.device)
+    v, t = tid % V, tid // V
+    k1 = torch.arange(nblk, device=x.device)[:, None] * V + v[None, :]  # [b, tid]
+    k2 = torch.arange(m2, device=x.device)
+    k = emit_index(m_log2).to(x.device)[t]  # [tid, q]
+    shape = (nblk, m2, NT, k.shape[1])
+    k1b = k1[:, None, :, None].expand(shape)
+    k2b = k2[None, :, None, None].expand(shape)
+    tb = t[None, None, :, None].expand(shape)
+    qb = torch.arange(k.shape[1], device=x.device)[None, None, None, :].expand(shape)
+    kb = k[None, None, :, :].expand(shape)
+    live = k1b < m1
+    addr = ((kb * m2 + k2b) * m1 + k1b)[live]
+    val = regs[k1b[live], k2b[live], tb[live], qb[live]]
+    writes = torch.bincount(addr, minlength=mc * m2 * m1)
+    if writes.numel() != mc * m2 * m1 or not bool((writes == 1).all()):
+        raise AssertionError("K4's stores do not cover the output once each")
+    y = torch.empty(mc * m2 * m1, dtype=x.dtype, device=x.device)
+    y[addr] = val
+    return y.reshape(mc, m2, m1)
 
 
 def pass_counts(m_log2: int, inverse: bool) -> dict:
@@ -419,7 +501,7 @@ def _ptr(t, device) -> int:
 def _check_aligned(*ts) -> None:
     for t in ts:
         if t is not None and t.data_ptr() % 16:
-            raise ValueError("K2/K3 take 16-byte aligned tensors (their loads and stores are 16 B)")
+            raise ValueError("K2-K4 take 16-byte aligned tensors (their loads and stores are 16 B)")
 
 
 def phase_axis(x, axis: int, inverse: bool, tw=None, tw_period=None, scale: int = 1):
@@ -481,17 +563,20 @@ def phase_batched(x, inverse: bool, ta=None, t=None):
 
 
 def phase_last(x, inverse: bool, scale: int = 1):
-    """K4 wrapper: x [m1, m2, mc] -> [mc, m2, m1] (flat = natural order)."""
+    """K4 wrapper: x [m1, m2, mc] -> [mc, m2, m1] (flat = natural order).
+    On the card x is 16-byte aligned."""
     if not x.is_cuda:
         return phase_last_plain(x, inverse, scale)
     _check_field(x, 3, "phase_last")
     m1, m2, mc = x.shape
     mc_log2 = mc.bit_length() - 1
     y = torch.empty((mc, m2, m1), dtype=torch.int64, device=x.device)
+    _check_aligned(x, y)
+    pt = _pass_twiddles(mc_log2, inverse, x.device) if mc_log2 >= 7 else None
     with torch.cuda.device(x.device):
         rc = _kernels.lib().sezkp_ntt_phase_last(
-            x.data_ptr(), y.data_ptr(), m1, m2, mc_log2,
-            _wp(mc_log2, inverse, x.device).data_ptr(), int(scale), _kernels.stream_ptr(),
+            x.data_ptr(), y.data_ptr(), m1, m2, mc_log2, int(inverse),
+            _ptr(pt, x.device), int(scale), _kernels.stream_ptr(),
         )
     _kernels.check(rc, "ntt_phase_last")
     phase_last.launches += 1

@@ -128,3 +128,52 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     with pytest.raises(Exception):
         ND.i8_gemm(FakeCuda(), FakeCuda())
     assert not called
+
+
+# ----------------- K8's tile schedule (csrc/i8_gemm.cu) in tensor code -----------------
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+@pytest.mark.parametrize("M,K,N,nrep", [(8, 8, 24, 1), (16, 16, 40, 9), (64, 64, 96, 8), (192, 320, 576, 2),
+                                        (64, 128, 192, 3)])
+def test_tile_model_equals_plain_and_script(M, K, N, nrep, fuse):
+    """The swapped product, the persistent walk over 256 x 128 tiles, the (j,
+    k chunk) order of `fuse`, zero-filled boxes past the edges (M, K, N that
+    are no multiple of the tile: the last M tile reads the next block's rows),
+    the permutation of n and the clipped store == i8_gemm_plain == the
+    script's products, both epilogues."""
+    w, x = _rand((nrep * M, K), M + K + nrep), _rand((K, N), N)
+    want = np.asarray(_dots(jnp.asarray(w), jnp.asarray(x), M, nrep, fuse))
+    wt, xt = torch.from_numpy(w), torch.from_numpy(x)
+    got = ND.i8_gemm_model(wt, xt, nrep, "int32", fuse)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert torch.equal(got, ND.i8_gemm_plain(wt, xt, nrep))
+    i8 = ND.i8_gemm_model(wt, xt, nrep, "and127", fuse)
+    assert i8.dtype == torch.int8 and np.array_equal(i8.numpy(), np.asarray((jnp.asarray(want) & 127).astype(jnp.int8)))
+    assert torch.equal(i8, ND.i8_gemm_plain(wt, xt, nrep, "and127"))
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_tile_model_sums_wrap_int32(fuse):
+    """The wrap case of test_sums_wrap_int32_as_the_script_does through the
+    tile schedule: 1280 k chunks of 128 summed in one tile."""
+    k, m, nrep = 1024, 8, 160
+    w = np.full((nrep * m, k), -128, dtype=np.int8)
+    x = np.full((k, 4), -128, dtype=np.int8)
+    x[:, 1] = 127
+    x[::3, 2] = 5
+    want = np.asarray(_dots(jnp.asarray(w), jnp.asarray(x), m, nrep, fuse))
+    got = ND.i8_gemm_model(torch.from_numpy(w), torch.from_numpy(x), nrep, "int32", fuse)
+    exact = nrep * k * (1 << 14)
+    assert np.array_equal(got.numpy(), want)
+    assert int(got[0, 0]) == ((exact + (1 << 31)) % (1 << 32)) - (1 << 31)
+
+
+def test_n_order_pairs_fragment_rows():
+    """Row r of K8's A operand is a permutation of the tile's 128 columns, in
+    which rows g and g + 8 of every 16 are neighbouring columns (2g, 2g + 1):
+    one 16-bit shared-memory read serves both of a lane's fragment rows."""
+    perm = ND.i8_n_order()
+    assert sorted(perm.tolist()) == list(range(128))
+    r = torch.arange(128).reshape(8, 16)
+    assert torch.equal(perm[r[:, 8:]], perm[r[:, :8]] + 1) and bool((perm[r[:, :8]] % 2 == 0).all())

@@ -216,7 +216,8 @@ def test_ntt_variants_edit_the_sources_as_they_are(capsys):
     from sezkp_tpu_torch.ops import _kernels
     from sezkp_tpu_torch.probes import ntt_variants
 
-    for name, edits in ntt_variants.VARIANTS.items():
+    for name, (sources, edits) in ntt_variants.VARIANTS.items():
+        assert sources and set(sources) <= set(_kernels._SOURCES), name
         for fn, old, new in edits:
             with open(os.path.join(_kernels._CSRC, fn)) as f:
                 assert old in f.read(), (name, fn, old)

@@ -264,6 +264,36 @@ def test_pass_model_matches_plain_and_jax(m_log2, inverse):
     assert torch.equal(model, NT.phase_batched_plain(xb, inverse, ta=ta, t=t))
 
 
+@pytest.mark.parametrize("m1", [3, 37])
+@pytest.mark.parametrize("m_log2", range(1, 11))
+@pytest.mark.parametrize("inverse", [False, True])
+def test_phase_last_model_matches_plain_and_jax(m_log2, inverse, m1):
+    """K4's tile in tensor code (csrc/ntt_last.cu): staged rows, the register
+    passes along the last axis, the (t, q) -> k emission map, the scale and
+    the transposed store by address, with m1 below a block's V vectors (3)
+    and m1 over several blocks (37 at mc = 1024) == phase_last_plain == the
+    JAX package's _ntt_stages, transposed."""
+    m, m2 = 1 << m_log2, 2
+    rng = np.random.default_rng(500 + 4 * m_log2 + 2 * inverse + (m1 > 3))
+    scale = G.inv(m) if inverse else 977
+    x = rng.integers(0, P, (m1, m2, m), dtype=np.uint64)
+    x[0, 0, 0], x[-1, -1, -1] = 0, P - 1
+    xt = FT.pack(x)
+    got = NT.phase_last_model(xt, inverse, scale)
+    assert tuple(got.shape) == (m, m2, m1)
+    assert torch.equal(got, NT.phase_last_plain(xt, inverse, scale))
+    lo, hi = _jax_stages(m_log2)(*FJ.pack(x.reshape(m1 * m2, m)), ntt_jax._tables_packed(m_log2, inverse))
+    want = G.mul(FJ.unpack((lo, hi)), np.uint64(scale)).reshape(m1, m2, m).transpose(2, 1, 0)
+    assert np.array_equal(FT.unpack(got), want)
+
+
+def test_emit_index_is_a_permutation():
+    """Every output index k is emitted by exactly one (thread, register)."""
+    for m_log2 in range(1, 11):
+        k = NT.emit_index(m_log2)
+        assert sorted(k.reshape(-1).tolist()) == list(range(1 << m_log2))
+
+
 @pytest.mark.parametrize("m_log2", [4, 7, 8, 10])
 def test_pass_counts(m_log2):
     """The schedule keeps the radix-2 butterfly count (m/2 log2 m a vector),
