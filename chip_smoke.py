@@ -9,12 +9,14 @@ Phases (any failure ends the run with a non-zero exit code):
   env           card name and power limit, versions; builds the native host
                 library (g++) and the CUDA kernels (nvcc) from the sources in
                 this checkout; ptxas's registers, spills and shared memory of
-                K4 and K8.
+                K4, K5 and K8.
   kernels       every hand-written kernel against its plain PyTorch version
                 on the card, exact equality (tolerance 0: integer code), at
                 reduced and at main-path shapes; kernel, plain and bound times.
-                K5/K6 at every n = 2^1 .. 2^13 both ways, and the whole
-                transforms there against the host oracle; K2-K4 at every
+                K5 (one cluster launch a transform) at every n = 2^1 .. 2^13
+                both ways, against its plain version and the host oracle,
+                with the launch floor (an empty launch, one CTA and one
+                cluster) timed beside it; K2-K4 at every
                 m = 2^1 .. 2^10 both ways (K4 also with m1 = 3, below a
                 block's vectors, and 37, odd and over several blocks). K2-K4 also at
                 three-factor shapes that the port's own factorisation never
@@ -37,7 +39,7 @@ Phases (any failure ends the run with a non-zero exit code):
                 host-columns route, whose bytes must be the same.
   parity-small  device-resident route: the proof made on the card equals,
                 byte for byte, the proof made with device="cpu" at T = 2^13
-                (where K5 and K6 must have launched once each) and T = 2^15;
+                (where K5 must have launched exactly once) and T = 2^15;
                 at T = 2^16 the proves with zero memory budgets (roots-scan
                 commit, recomputed and range-derived openings, slab-wise
                 composition) equal the resident prove.
@@ -81,7 +83,8 @@ Phases (any failure ends the run with a non-zero exit code):
                 built kernels and a one-primitive probe and prints the
                 instruction counts, by issue pipe, that the operation bounds
                 of the kernels phase rest on, with a sha256 of each kernel's
-                instructions, and K4's instructions per element by pipe; the
+                instructions, K4's instructions per element by pipe and K5's
+                registers, spills and instruction mix at every n; the
                 text goes to chiprun_out/sass/. With
                 --sass-csrc DIR (the ops/csrc of another checkout) it builds
                 those sources too and says which kernels are the same code.
@@ -223,8 +226,8 @@ def phase_env(state) -> None:
     if not b3.HAVE_NATIVE:
         fail("native host library (g++) did not build or load")
     t1 = time.time()
-    # ptxas's registers, spills and shared memory of K4 and K8, built beside the library
-    ptxas = _ptxas_start(("ntt_last.cu", "i8_gemm.cu"))
+    # ptxas's registers, spills and shared memory of K4, K5 and K8, built beside the library
+    ptxas = _ptxas_start(("ntt_last.cu", "ntt_small.cu", "i8_gemm.cu"))
     _kernels.lib()
     log(f"[env] set-up: native host lib {t1 - t0:.1f} s, CUDA kernels {_kernels.build_seconds:.1f} s")
     for func, usage in sorted(_ptxas_usage(ptxas)[1].items()):
@@ -252,6 +255,7 @@ def _words_rand(n, gen, dev):
 
 
 def phase_kernels(state) -> None:
+    from sezkp_tpu_torch.ops import _kernels
     from sezkp_tpu_torch.ops import blake3_torch as BT
     from sezkp_tpu_torch.ops import goldilocks as G
     from sezkp_tpu_torch.ops import goldilocks_torch as FT
@@ -313,19 +317,23 @@ def phase_kernels(state) -> None:
         b_ops = ops_ms(n_el, per_el)
         return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations")
 
-    def bound_design(n_el, m_log2, inverse, twiddles, table_el):
-        """The bound of K2-K4's register-pass design: the same bytes; per
-        vector of length m the operations of its pass schedule
-        (ntt_torch.pass_counts: general products gl::mul_cc, the
-        butterflies gl::bfly, mul_pow2 by shift range, neg), plus `twiddles`
-        general products an element (the fused tables and the scale)."""
-        b_bytes = (16 * n_el + 8 * table_el) / _peaks()[0] * 1e3
-        c = NT.pass_counts(m_log2, inverse)
-        per_el = tuple(
+    def design_ops(m_log2, inverse, **plan):
+        """(multiply-add, ALU) instructions an element of a length-2^m_log2
+        DFT in the register-pass design (ntt_torch.pass_counts with `plan`:
+        general products gl::mul_cc, the butterflies gl::bfly, mul_pow2 by
+        shift range, neg)."""
+        c = NT.pass_counts(m_log2, inverse, **plan)
+        return tuple(
             (c.get("mul", 0) * GL_MULCC_OPS[i] + c.get("bfly", 0) * GL_BFLY_OPS[i] + c.get("neg", 0) * GL_NEG_OPS[i]
              + sum(c.get("pow2_" + r, 0) * GL_MULPOW2_OPS[r][i] for r in GL_MULPOW2_OPS)) / (1 << m_log2)
-            + twiddles * GL_MULCC_OPS[i]
             for i in (0, 1))
+
+    def bound_design(n_el, m_log2, inverse, twiddles, table_el):
+        """The bound of K2-K4's register-pass design: the same bytes; per
+        element the operations of its pass schedule (design_ops) plus
+        `twiddles` general products (the fused tables and the scale)."""
+        b_bytes = (16 * n_el + 8 * table_el) / _peaks()[0] * 1e3
+        per_el = tuple(o + twiddles * mc for o, mc in zip(design_ops(m_log2, inverse), GL_MULCC_OPS))
         b_ops = ops_ms(n_el, per_el)
         return max(b_bytes, b_ops), ("bytes" if b_bytes >= b_ops else "operations")
 
@@ -461,59 +469,64 @@ def phase_kernels(state) -> None:
     kern["ntt_phase_axis"]["replaces"] = "sezkp_tpu/ops/ntt_mxu.py:374"
     kern["ntt_phase_batched"]["replaces"] = "sezkp_tpu/ops/ntt_mxu.py:475"
     kern["ntt_phase_last"]["replaces"] = "sezkp_tpu/ops/ntt_mxu.py:540"
-    # ---- K5/K6: the two phases of every n = 2^1 .. 2^13, both ways
-    errs.update(ntt_small_cols=0, ntt_small_rows=0)
+    # ---- K5 ntt_small: the whole transform of every n = 2^1 .. 2^13, both
+    # ways, in one cluster launch
+    lib = _kernels.lib()
+    errs["ntt_small"] = 0
     for n_log2 in range(1, NT.MIN_LOG2):
+        n = 1 << n_log2
+        plan = NT.small_plan(n_log2)
+        if lib.sezkp_ntt_small_cluster(n_log2) != plan["C"]:
+            fail(f"n=2^{n_log2}: K5 launches a cluster of {lib.sezkp_ntt_small_cluster(n_log2)} CTAs, "
+                 f"ntt_torch.small_plan says {plan['C']}")
         for inverse in (False, True):
-            n = 1 << n_log2
-            l1 = min(10, n_log2 // 2)
-            l2 = n_log2 - l1
-            inv_n = G.inv(n) if inverse else 1
             a = _field_rand((n,), gen, dev)
-            what = f"n=2^{n_log2} inverse={inverse}"
-            tw = NT._twiddle_matrix(l1, l2, inverse, dev)
-            x0 = a.reshape(1 << l1, 1 << l2)
-            x1 = NT.small_cols(x0, inverse, tw)
-            hold("ntt_small_cols", x1, NT.small_cols_plain(x0, inverse, tw), what)
-            x2 = NT.small_rows(x1, inverse, scale=inv_n)
-            hold("ntt_small_rows", x2, NT.small_rows_plain(x1, inverse, scale=inv_n), what)
+            what = f"n=2^{n_log2} inverse={inverse} (a cluster of {plan['C']})"
+            got = NT.small_ntt(a, inverse)
+            hold("ntt_small", got, NT.small_ntt_plain(a, inverse), what)
             whole = NT.inverse_ntt(a) if inverse else NT.forward_ntt(a)
             ref = ntt_host.inverse_ntt(_to_u64(a)) if inverse else ntt_host.forward_ntt(_to_u64(a))
-            if not (np.array_equal(_to_u64(whole), ref) and np.array_equal(_to_u64(x2).reshape(n), ref)):
+            if not (np.array_equal(_to_u64(got), ref) and np.array_equal(_to_u64(whole), ref)):
                 fail(f"small-n NTT != host oracle at {what}")
             if n_log2 == NT.MIN_LOG2 - 1 and inverse:
-                # times at the main-path shape: the base inverse NTT of a T = 2^13 prove
-                for name, fn, plain, shp, mlog, tab in (
-                    ("ntt_small_cols",
-                     lambda: NT.small_cols(x0, inverse, tw),
-                     lambda: NT.small_cols_plain(x0, inverse, tw),
-                     f"int64 [{1 << l1}, {1 << l2}] columns, twiddle [{1 << l1}, {1 << l2}]",
-                     l1, n + (1 << l1) // 2),
-                    ("ntt_small_rows",
-                     lambda: NT.small_rows(x1, inverse, scale=inv_n),
-                     lambda: NT.small_rows_plain(x1, inverse, scale=inv_n),
-                     f"int64 [{1 << l1}, {1 << l2}] rows -> [{1 << l2}, {1 << l1}], scale n^-1",
-                     l2, (1 << l2) // 2),
-                ):
-                    ms = time_cuda(fn, 200)
-                    graph_ms = time_cuda_graph(fn, 200)
-                    plain_ms = time_cuda(plain, 5)
-                    bnd, by = bound(n, mlog, 1, tab)
-                    # ms: launches made one by one from Python, as the prover
-                    # makes them; graph_ms: the same launches replayed from a
-                    # CUDA graph, the device's share of that time
-                    kern[name] = dict(
-                        name=name, route="cuda", source="sezkp_tpu_torch/ops/csrc/ntt_small.cu",
-                        shape=shp, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms, bound_ms=bnd,
-                        bound_by=by, library_ms=None,
-                    )
-    kern["ntt_small_cols"]["replaces"] = "sezkp_tpu/ops/ntt_pallas.py:162"
-    kern["ntt_small_rows"]["replaces"] = "sezkp_tpu/ops/ntt_pallas.py:177"
-    for name in ("ntt_small_cols", "ntt_small_rows"):
-        kern[name]["max_abs_err"] = errs[name]
+                # times at the main-path shape: the base inverse NTT of a T = 2^13 prove.
+                # ms: launches made one by one from Python, as the prover makes them;
+                # graph_ms: the same launches replayed from a CUDA graph, the device's share
+                l1, l2 = plan["l1"], plan["l2"]
+                fn = lambda: NT.small_ntt(a, inverse)
+                ms, graph_ms = time_cuda(fn, 200), time_cuda_graph(fn, 200)
+                plain_ms = time_cuda(lambda: NT.small_ntt_plain(a, inverse), 5)
+                # the design bound: both phases' pass schedules and the four-step
+                # twiddle (n^-1 rides in its table: no product for the scale);
+                # bytes: the vector in and out, the four-step table, the pass tables
+                kplan = dict(reg_log2=NT.SMALL_REG_LOG2, table=True)
+                per_el = tuple(x + y + mc for x, y, mc in
+                               zip(design_ops(l1, inverse, **kplan), design_ops(l2, inverse, **kplan), GL_MULCC_OPS))
+                b_ops = ops_ms(n, per_el)
+                tables = sum(8 << l for l in (l1, l2) if l > NT.SMALL_REG_LOG2)
+                b_bytes = (24 * n + tables) / _peaks()[0] * 1e3
+                # the launch floor: an empty kernel launched as K5 launches, one
+                # CTA and a cluster of K5's size at this n
+                floor = {}
+                for c in sorted({1, plan["C"]}):
+                    call = lambda c=c: _kernels.check(lib.sezkp_launch_floor(c, _kernels.stream_ptr()), "launch_floor")
+                    floor[f"cluster_{c}"] = dict(ms=time_cuda(call, 200), graph_ms=time_cuda_graph(call, 200))
+                kern["ntt_small"] = dict(
+                    name="ntt_small", route="cuda", source="sezkp_tpu_torch/ops/csrc/ntt_small.cu",
+                    replaces="sezkp_tpu/ops/ntt_pallas.py:162 (phase_a_kernel) and :177 (phase_b_kernel)",
+                    shape=f"int64 [{n}] inverse ([{1 << l1}, {1 << l2}]): one cluster of {plan['C']} CTAs "
+                          f"x {plan['nt']} threads",
+                    ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                    bound_ms=max(b_ops, b_bytes), bound_by="bytes" if b_bytes >= b_ops else "operations",
+                    library_ms=None, launch_floor=floor,
+                )
+                log(f"[kernels] K5 ntt_small at 2^13 inverse: {ms:.4f} ms issued, {graph_ms:.4f} ms replayed "
+                    f"(bound {max(b_ops, b_bytes):.6f}); launch floor (ms, issued / replayed): "
+                    + json.dumps({k: (round(v["ms"], 4), round(v["graph_ms"], 4)) for k, v in floor.items()}))
+    kern["ntt_small"]["max_abs_err"] = errs["ntt_small"]
     if NT.forward_ntt(torch.zeros(1, dtype=torch.int64, device=dev)).shape != (1,):
         fail("forward_ntt of one point")
-    log("[kernels] K5/K6 == plain, and forward/inverse NTT == host oracle, at every n = 2^1 .. 2^13")
+    log("[kernels] K5 == plain, and K5 and forward/inverse NTT == host oracle, at every n = 2^1 .. 2^13")
 
     # ---- K2-K4 at three-factor shapes outside the port's own factorisation:
     # a last factor below 128 (the JAX package's transposed-contraction
@@ -635,8 +648,10 @@ def phase_kernels(state) -> None:
             lambda: NT.phase_axis(torch.zeros(65, dtype=torch.int64, device=dev)[1:].view(8, 8), 0, False))
     refuses(ValueError, "phase_batched of an odd column count",
             lambda: NT.phase_batched(torch.zeros((2, 8, 5), dtype=torch.int64, device=dev), False))
-    refuses(ValueError, "small_cols of a 1-D tensor",
-            lambda: NT.small_cols(small, False, small))
+    refuses(ValueError, "small_ntt of a 2-D tensor",
+            lambda: NT.small_ntt(small.view(32, 32), False))
+    refuses(ValueError, "small_ntt of n = 2^14",
+            lambda: NT.small_ntt(a[: 1 << 14].clone(), False))
     zeros = torch.zeros((32, 8), dtype=torch.int32, device=dev)
     refuses(ValueError, "hash_many_words of 0-byte messages",
             lambda: BT.hash_many_words(zeros[:16], 0))
@@ -950,8 +965,8 @@ def _unit(op: str) -> str:
 
 
 def _short(name: str) -> str:
-    """ntt_phase_axis_kernel<7,0,0> for a mangled K2/K3/K4 name; other names as they are."""
-    k = re.search(r"(ntt_phase_\w+?_kernel)(?:I((?:L[ib]\d+E)+)E)?", name)
+    """ntt_phase_axis_kernel<7,0,0> for a mangled K2-K5 name; other names as they are."""
+    k = re.search(r"(ntt_(?:phase_\w+?|small)_kernel)(?:I((?:L[ib]\d+E)+)E)?", name)
     if not k:
         i8 = re.search(r"\d(i8_[a-z_]+_kernel)", name)
         return i8.group(1) if i8 else name
@@ -1001,6 +1016,7 @@ def phase_sass(state) -> None:
        of every kernel and of every loop in it (a backward branch and the
        instructions it spans) to chiprun_out/sass/loops.txt."""
     from sezkp_tpu_torch.ops import _kernels
+    from sezkp_tpu_torch.ops import ntt_torch as NT
 
     nvcc = _kernels._find_nvcc()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
@@ -1035,8 +1051,8 @@ def phase_sass(state) -> None:
                    + json.dumps({r: pair('mul_pow2_' + r) for r in ('lo', 'mid', 'hi')})
                    + f"; GL_BFLY_OPS = {pair('bfly')}; GL_MULCC_OPS = {pair('mul_cc')}")
 
-    # registers, spills and shared memory of K2-K4's instantiations (ptxas)
-    ptxas, usage = _ptxas_usage(_ptxas_start(("ntt_phases.cu", "ntt_last.cu")))
+    # registers, spills and shared memory of K2-K5's instantiations (ptxas)
+    ptxas, usage = _ptxas_usage(_ptxas_start(("ntt_phases.cu", "ntt_last.cu", "ntt_small.cu")))
     with open("chiprun_out/sass/ptxas_ntt_phases.txt", "w") as f:
         f.write(ptxas)
     summary += [f"ptxas {f}: {' | '.join(u)}" for f, u in sorted(usage.items())]
@@ -1073,6 +1089,17 @@ def phase_sass(state) -> None:
             summary.append(f"K4 {short}: per element imad-family {pipes['imad'] / per:.1f}, "
                            f"alu {units['alu'] / per:.1f}, memory {units['mem'] / per:.1f}, "
                            f"control {units['ctl'] / per:.1f}")
+        # K5 has no loop either: each thread runs its instructions once, the
+        # chain whose length a transform waits for
+        k5 = re.fullmatch(r"ntt_small_kernel<(\d+),(\d+)>", short)
+        if k5:
+            plan = NT.small_plan(int(k5.group(1)))
+            pipes = Counter(_pipe(op) for _, op, _ in ins)
+            units = Counter(_unit(op) for _, op, _ in ins)
+            summary.append(f"K5 {short}: a cluster of {plan['C']} x {plan['nt']} threads; a thread's "
+                           f"{len(ins)} instructions: imad-family {pipes['imad']}, alu {units['alu']}, "
+                           f"memory {units['mem']}, control {units['ctl']}; "
+                           f"ptxas {' | '.join(usage.get(short, ['not reported']))}")
     with open("chiprun_out/sass/loops.txt", "w") as f:
         f.write("\n".join(out) + "\n")
     for line in out:
@@ -1122,8 +1149,7 @@ def _wrappers():
         "ntt_phase_axis": NT.phase_axis,
         "ntt_phase_batched": NT.phase_batched,
         "ntt_phase_last": NT.phase_last,
-        "ntt_small_cols": NT.small_cols,
-        "ntt_small_rows": NT.small_rows,
+        "ntt_small": NT.small_ntt,
     }
 
 
@@ -1242,8 +1268,8 @@ def phase_parity_small(state) -> None:
             f"(sha256 {_sha(on_card)}); launches {json.dumps(launches)}")
         if t_log2 == 13:
             state["launches_small"] = launches
-            if launches["ntt_small_cols"] != 1 or launches["ntt_small_rows"] != 1:
-                fail("T = 2^13: K5 and K6 must launch once each (the base inverse NTT)")
+            if launches["ntt_small"] != 1:
+                fail(f"T = 2^13: K5 must launch exactly once (the base inverse NTT), not {launches['ntt_small']} times")
 
     blocks, man, _ = _make_input(1 << 16, 512, 8)
     resident, _, _, _, peak = _counted_prove(blocks, man.root)
@@ -1628,7 +1654,7 @@ def main() -> None:
     kernels = []
     for name, k in state.get("kernels", {}).items():
         k = dict(k)
-        # K1-K4: the count over the T = 2^20 STARK prove; K5/K6, which only a
+        # K1-K4: the count over the T = 2^20 STARK prove; K5, which only a
         # base domain below 2^14 reaches: the count over the T = 2^13 prove;
         # K7: the count over the first default fold prove (65536
         # blocks), with the count per fold input beside it; K8-K11: the count
@@ -1640,7 +1666,7 @@ def main() -> None:
             k["launches"] = next(iter(per_input.values())) if per_input else None
             k["launches_by_input"] = per_input
         else:
-            counted = "launches_small" if name.startswith("ntt_small") else "launches"
+            counted = "launches_small" if name == "ntt_small" else "launches"
             k["launches"] = state[counted][name] if counted in state else None
         kernels.append(k)
     log(f"total {time.time() - t_start:.1f} s")

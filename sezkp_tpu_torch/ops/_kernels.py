@@ -29,7 +29,7 @@ _SOURCES = (
     "i8_gemm.cu", "gl_digits.cu", "digit_dft.cu",
 )
 _HEADERS = (
-    "blake3_round.cuh", "goldilocks.cuh", "ntt_smem.cuh", "ntt_reg.cuh", "i8_mma.cuh",
+    "blake3_round.cuh", "goldilocks.cuh", "ntt_reg.cuh", "i8_mma.cuh",
     "smem_opt_in.cuh", "tma_wgmma.cuh",
 )
 _NVCC_FLAGS = (
@@ -122,8 +122,9 @@ def lib() -> ctypes.CDLL:
     L.sezkp_ntt_phase_axis.argtypes = [vp, vp, i, ll, i, i, vp, vp, ll, ull, vp]
     L.sezkp_ntt_phase_batched.argtypes = [vp, vp, i, i, i, i, vp, vp, vp, vp]
     L.sezkp_ntt_phase_last.argtypes = [vp, vp, i, i, i, i, vp, ull, vp]
-    L.sezkp_ntt_small_cols.argtypes = [vp, vp, i, i, vp, vp, vp]
-    L.sezkp_ntt_small_rows.argtypes = [vp, vp, i, i, vp, ull, vp]
+    L.sezkp_ntt_small.argtypes = [vp, vp, i, i, vp, vp, vp, vp]
+    L.sezkp_ntt_small_cluster.argtypes = [i]
+    L.sezkp_launch_floor.argtypes = [i, vp]
     L.sezkp_i8_gemm.argtypes = [vp, vp, vp, i, i, ll, i, i, i, vp]
     L.sezkp_gl_digits.argtypes = [vp, vp, ll, ll, ll, vp]
     L.sezkp_digit_dft.argtypes = [vp, vp, vp, vp, i, ll, i, vp]
@@ -131,7 +132,7 @@ def lib() -> ctypes.CDLL:
     for fn in (
         L.sezkp_blake3_compress, L.sezkp_blake3_chain, L.sezkp_ntt_phase_axis,
         L.sezkp_ntt_phase_batched, L.sezkp_ntt_phase_last,
-        L.sezkp_ntt_small_cols, L.sezkp_ntt_small_rows,
+        L.sezkp_ntt_small, L.sezkp_ntt_small_cluster, L.sezkp_launch_floor,
         L.sezkp_i8_gemm, L.sezkp_gl_digits, L.sezkp_digit_dft, L.sezkp_digit_dft_last,
     ):
         fn.restype = ctypes.c_int

@@ -13,8 +13,9 @@
 //                     of length <= 64 take this path (ntt_reg.cuh). With e a
 //                     compile-time constant the shifts fold to constants.
 //   bfly(u, t)        (u + t, u - t): the butterfly of the register passes.
-//   mul_cc            mul, with the fold as below: the register passes'
-//                     general products (K5, K6 keep mul).
+//   mul_cc            mul, with the fold as below: the general products of
+//                     the register passes (K2-K5; mul stays for gl_probe.cu
+//                     and probes/ntt_variants.py's A/B).
 //
 // mul_pow2, mul_cc and bfly write their borrows and carries out as PTX
 // carry chains (sub_pb, add_ce), where C++ compares 64-bit values instead

@@ -21,26 +21,31 @@ inverse's n^-1 folded into the last phase:
   flat result is in natural order.
 
 Below 2^MIN_LOG2 the transform is the four-step form n = n1*n2 with
-n1 = 2^(log2(n) // 2), two launches (csrc/ntt_small.cu):
+n1 = 2^(log2(n) // 2), in one launch:
 
-- **K5 ``ntt_small_cols``** replaces ``ntt_pallas.phase_a_kernel``: DFT of
-  length n1 down every column of ``[n1, n2]``, then times ``w_n^(k1*j2)``.
-- **K6 ``ntt_small_rows``** replaces ``ntt_pallas.phase_b_kernel`` and the
-  scale and transpose that follow it there: DFT of length n2 along every row,
-  times n^-1 for the inverse, stored as ``[n2, n1]`` (natural order).
+- **K5 ``ntt_small``** (csrc/ntt_small.cu) replaces ``ntt_pallas``'s
+  ``phase_a_kernel`` and ``phase_b_kernel`` and the gathers, the scale and
+  the transpose around them: the length-n1 DFT down every column of
+  ``[n1, n2]`` times ``w_n^(k1*j2)`` (n^-1 folded into that table for the
+  inverse, ``_small_twiddles``), then the length-n2 DFT along every row,
+  stored in natural order. Its plain version is ``small_cols_plain`` then
+  ``small_rows_plain`` (the plain versions of the two Pallas phases).
 
-At these sizes (at most 64 KB of data) a launch's latency is the cost, not its
-bytes or operations. K2 and K3 are in csrc/ntt_phases.cu, K4 in
-csrc/ntt_last.cu. Each moves 16 B per
-element per phase plus the twiddle reads; the integer ALU pipe of an H100,
-not its memory, is the nearer bound at the main path's shapes (chip_smoke.py
-computes both from instruction counts read in the sm_90a disassembly).
+K2 and K3 are in csrc/ntt_phases.cu, K4 in csrc/ntt_last.cu. Each moves 16 B
+per element per phase plus the twiddle reads; the integer ALU pipe of an
+H100, not its memory, is the nearer bound at the main path's shapes
+(chip_smoke.py computes both from instruction counts read in the sm_90a
+disassembly). At K5's sizes (at most 64 KB of data) a launch's latency is
+the cost, not its bytes or operations.
 
-- **K5/K6** run log2(m) radix-2 stages over a tile in shared memory, a
-  barrier after each: log2(m)/2 butterflies an element of 56 field
-  instructions (multiply 34, add 14, subtract 8; 39 on the ALU pipe) and
-  about 35 more of index arithmetic on run-time sizes. K2-K4 had that design
-  first.
+- **K5** is one launch of one thread block cluster of C CTAs
+  (``small_plan``: C = 1 up to n = 2^8, 16 from 2^12). CTA c runs phase A on
+  its n2/C columns and leaves them in its shared memory; after a cluster
+  barrier it reads its n1/C rows from the C CTAs' shared memory (distributed
+  shared memory), runs phase B and stores the result; a second barrier keeps
+  the CTAs alive while peers read. Both phases run the register passes
+  below with 8 elements a thread and the twiddles between passes from
+  tables (``small_cluster_model`` is the kernel's schedule in tensor code).
 - **K2-K4** run register-resident radix-16 passes (csrc/ntt_reg.cuh;
   ``pass_registers`` and ``emit_index`` below are the same schedule in
   tensor code), templated on m and the direction: no index arithmetic on
@@ -79,7 +84,7 @@ from . import goldilocks as G
 from . import goldilocks_torch as FT
 from . import ntt as ntt_host
 
-MIN_LOG2 = 14  # below this the four-step small-n form (K5, K6); from here up the multi-step form
+MIN_LOG2 = 14  # below this the four-step small-n form (K5); from here up the multi-step form
 
 _tables: Dict[Tuple, torch.Tensor] = {}
 
@@ -107,25 +112,28 @@ def _root(n_log2: int, inverse: bool) -> int:
     return G.inv(w) if inverse else w
 
 
-def _wp(m_log2: int, inverse: bool, device) -> torch.Tensor:
-    """w_m^k for k < m/2 (the butterflies' twiddles), int64 [m/2]."""
-    return _cached(
-        ("wp", m_log2, inverse), device,
-        lambda: ntt_host.powers(_root(m_log2, inverse), max((1 << m_log2) >> 1, 1)),
-    )
+def _twiddle_np(l1: int, l2: int, inverse: bool) -> np.ndarray:
+    n_log2 = l1 + l2
+    wp = ntt_host.powers(_root(n_log2, inverse), 1 << n_log2)
+    k1 = np.arange(1 << l1, dtype=np.uint64)[:, None]
+    j2 = np.arange(1 << l2, dtype=np.uint64)[None, :]
+    return wp[(k1 * j2) & np.uint64((1 << n_log2) - 1)]
 
 
 def _twiddle_matrix(l1: int, l2: int, inverse: bool, device) -> torch.Tensor:
     """T[k1, j2] = w_n^(k1*j2), n = 2^(l1+l2), int64 [m1, m2]."""
+    return _cached(("tmat", l1, l2, inverse), device, lambda: _twiddle_np(l1, l2, inverse))
 
-    def make():
-        n_log2 = l1 + l2
-        wp = ntt_host.powers(_root(n_log2, inverse), 1 << n_log2)
-        k1 = np.arange(1 << l1, dtype=np.uint64)[:, None]
-        j2 = np.arange(1 << l2, dtype=np.uint64)[None, :]
-        return wp[(k1 * j2) & np.uint64((1 << n_log2) - 1)]
 
-    return _cached(("tmat", l1, l2, inverse), device, make)
+def _small_twiddles(l1: int, l2: int, inverse: bool, device) -> torch.Tensor:
+    """K5's table: w_n^(k1*j2), times n^-1 for the inverse (the scale rides
+    in it, so phase B multiplies by nothing more), int64 [n1, n2]."""
+    if not inverse:
+        return _twiddle_matrix(l1, l2, inverse, device)
+    return _cached(
+        ("tsmall", l1, l2), device,
+        lambda: G.mul(_twiddle_np(l1, l2, True), np.uint64(G.inv(1 << (l1 + l2)))),
+    )
 
 
 def _t_outer(l1: int, l2: int, l3: int, inverse: bool, device):
@@ -167,7 +175,7 @@ def _t_mid(l_mid: int, l_last: int, inverse: bool, device) -> torch.Tensor:
     return _cached(("tmid", l_mid, l_last, inverse), device, make)
 
 
-# ----------------------- the pass schedule of K2-K4 -----------------------
+# ----------------------- the pass schedule of K2-K5 -----------------------
 
 # 2^POW2_ROOT_EXP[k] = w_{2^k} (primitive_root_2exp(k)) for k <= 6: 2 has order
 # 192 mod p, so every root of unity of order up to 64 is a power of two. The
@@ -193,26 +201,29 @@ def _pow2_exps(m_log2: int, inverse: bool, device) -> torch.Tensor:
     )
 
 
-def _pass_twiddles(m_log2: int, inverse: bool, device) -> torch.Tensor:
+def _pass_twiddles(m_log2: int, inverse: bool, device, reg_log2: int = REG_LOG2) -> torch.Tensor:
     """The general twiddles between the first and the second pass for
-    m >= 128: PT[t, k1] = w_m^(k1 t), int64 [m/16, 16] (row t is one thread's)."""
+    m >= 128: PT[t, k1] = w_m^(k1 t), int64 [m/E, E], E = 2^reg_log2
+    registers a vector (row t is one thread's)."""
 
     def make():
         w = ntt_host.powers(_root(m_log2, inverse), 1 << m_log2)
-        t = np.arange((1 << m_log2) >> REG_LOG2, dtype=np.uint64)[:, None]
-        k1 = np.arange(1 << REG_LOG2, dtype=np.uint64)[None, :]
+        t = np.arange((1 << m_log2) >> reg_log2, dtype=np.uint64)[:, None]
+        k1 = np.arange(1 << reg_log2, dtype=np.uint64)[None, :]
         return w[(t * k1) & np.uint64((1 << m_log2) - 1)]
 
-    return _cached(("passtw", m_log2, inverse), device, make)
+    return _cached(("passtw", m_log2, inverse, reg_log2), device, make)
 
 
-def _pass_logs(m_log2: int) -> list:
-    """log2 of each register pass's radix: one pass up to 16, then 16 x r, then 16 x 16 x r."""
-    if m_log2 <= REG_LOG2:
+def _pass_logs(m_log2: int, reg_log2: int = REG_LOG2) -> list:
+    """log2 of each register pass's radix, r = reg_log2: one pass up to 2^r,
+    then 2^r x s, then 2^r x 2^r x s."""
+    r = reg_log2
+    if m_log2 <= r:
         return [m_log2]
-    if m_log2 <= 2 * REG_LOG2:
-        return [REG_LOG2, m_log2 - REG_LOG2]
-    return [REG_LOG2, REG_LOG2, m_log2 - 2 * REG_LOG2]
+    if m_log2 <= 2 * r:
+        return [r, m_log2 - r]
+    return [r, r, m_log2 - 2 * r]
 
 
 class _Tally:
@@ -272,18 +283,18 @@ def _twiddle_pow2(a: torch.Tensor, k_log2: int, idx: torch.Tensor, inverse: bool
     return torch.where(idx == 0, a, FT.mul_pow2(a, e))
 
 
-def _plan(m_log2: int):
-    """(E, T, NT) of ntt_reg.cuh's Plan<L>: elements a thread holds of a
-    vector, threads of a vector, threads of a block."""
-    e = 1 << min(m_log2, REG_LOG2)
+def _plan(m_log2: int, reg_log2: int = REG_LOG2):
+    """(E, T, NT) of ntt_reg.cuh's Plan<L, R>: elements a thread holds of a
+    vector, threads of a vector, threads of a block (K2-K4's)."""
+    e = 1 << min(m_log2, reg_log2)
     return e, (1 << m_log2) // e, 512 if m_log2 == 10 else 256
 
 
-def emit_index(m_log2: int) -> torch.Tensor:
+def emit_index(m_log2: int, reg_log2: int = REG_LOG2) -> torch.Tensor:
     """[T, E] int64: the output index k that register q of thread t holds
     after the last pass, as ntt_reg.cuh's run_passes emits it (emit(k, q))."""
-    logs = _pass_logs(m_log2)
-    e, T, _ = _plan(m_log2)
+    logs = _pass_logs(m_log2, reg_log2)
+    e, T, _ = _plan(m_log2, reg_log2)
     t = torch.arange(T)[:, None]
     q = torch.arange(e)[None, :]
     if len(logs) == 1:
@@ -296,61 +307,64 @@ def emit_index(m_log2: int) -> torch.Tensor:
     return d // e + e * (d % e) + e * e * (q % m2)
 
 
-def pass_registers(x: torch.Tensor, m_log2: int, inverse: bool, tally=None) -> torch.Tensor:
-    """The DFT along the last axis, length m = 2^m_log2, in the order K2-K4
-    compute it (ntt_phases.cu, ntt_last.cu, ntt_reg.cuh), left where the
-    kernels leave it: [..., T, E], register q of thread t after the last pass
-    (``emit_index`` says which output each one is). Thread t of a vector holds
-    E = 16 elements (all of them for m <= 16) and runs, with M1 = m / 16:
+def pass_registers(x: torch.Tensor, m_log2: int, inverse: bool, tally=None,
+                   reg_log2: int = REG_LOG2, table: bool = False) -> torch.Tensor:
+    """The DFT along the last axis, length m = 2^m_log2, in the order K2-K5
+    compute it (ntt_phases.cu, ntt_last.cu, ntt_small.cu on ntt_reg.cuh), left
+    where the kernels leave it: [..., T, E], register q of thread t after the
+    last pass (``emit_index`` says which output each one is). Thread t of a
+    vector holds E = 2^reg_log2 elements (16 in K2-K4; all of them for
+    m <= E) and runs, with M1 = m / E:
 
-    - pass 1: x[j1*M1 + t] for j1 < 16 -> a length-16 DFT in registers
+    - pass 1: x[j1*M1 + t] for j1 < E -> a length-E DFT in registers
       -> times w_m^(k1 t) (powers of two for m <= 64, ``mul_pow2``; the table
-      ``_pass_twiddles`` and ``mul`` from m = 128) -> shared memory at
-      position k1*M1 + t;
-    - m <= 256: pass 2 reads positions 16t .. 16t+15, i.e. 16/M1 vectors of
-      length M1 (k1 = t*16/M1 + i), and their DFTs are
-      y[k1 + 16 k2];
-    - m = 512, 1024 (M1 = 16*M2): pass 2, thread t = 16*jj + k1, reads
-      positions k1*M1 + j2a*M2 + jj, a length-16 DFT, times
-      w_M1^(k2a jj) (powers of two), written back in place; pass 3 reads
-      positions 16t .. 16t+15 = d*M2 + j3 (d = 16 k1 + k2a), length-M2 DFTs,
-      y[k1 + 16 k2a + 256 k3]."""
+      ``_pass_twiddles`` and ``mul`` from m = 128, or at every m with
+      ``table``) -> shared memory at position k1*M1 + t;
+    - m <= E^2: pass 2 reads positions E*t .. E*t+E-1, i.e. E/M1 vectors of
+      length M1 (k1 = t*E/M1 + i), and their DFTs are y[k1 + E k2];
+    - m > E^2 (M1 = E*M2): pass 2, thread t = E*jj + k1, reads positions
+      k1*M1 + j2a*M2 + jj, a length-E DFT, times w_M1^(k2a jj) (powers of
+      two), written back in place; pass 3 reads positions E*t .. E*t+E-1 =
+      d*M2 + j3 (d = E k1 + k2a), length-M2 DFTs, y[k1 + E k2a + E^2 k3]."""
     batch = x.shape[:-1]
     m = 1 << m_log2
-    logs = _pass_logs(m_log2)
+    logs = _pass_logs(m_log2, reg_log2)
+    e = 1 << logs[0]
     T = m >> logs[0]
-    a = _reg_dft(x.reshape(batch + (1 << logs[0], T)).transpose(-1, -2), logs[0], inverse, tally)
+    a = _reg_dft(x.reshape(batch + (e, T)).transpose(-1, -2), logs[0], inverse, tally)
     if len(logs) == 1:
         return a  # [..., 1, m]
     t = torch.arange(T, device=x.device)[:, None]
-    k1 = torch.arange(16, device=x.device)[None, :]
-    if m_log2 <= 6:
+    k1 = torch.arange(e, device=x.device)[None, :]
+    if m_log2 <= 6 and not table:
         a = _twiddle_pow2(a, m_log2, t * k1, inverse, tally)
     else:
-        a = torch.cat([a[..., :1], FT.mul(a[..., 1:], _pass_twiddles(m_log2, inverse, x.device)[:, 1:])], -1)
+        pt = _pass_twiddles(m_log2, inverse, x.device, reg_log2)
+        a = torch.cat([a[..., :1], FT.mul(a[..., 1:], pt[:, 1:])], -1)
         if tally:
             tally.add("mul", a[..., 1:])
     pos = a.transpose(-1, -2).reshape(batch + (m,))  # position k1*M1 + t
     if len(logs) == 2:
         # [t, i, k2]: thread t's transforms i, register q = i*T + k2
-        return _reg_dft(pos.reshape(batch + (T, 16 // T, T)), logs[1], inverse, tally).reshape(batch + (T, 16))
+        return _reg_dft(pos.reshape(batch + (T, e // T, T)), logs[1], inverse, tally).reshape(batch + (T, e))
     m2 = 1 << logs[2]
-    q = _reg_dft(pos.reshape(batch + (16, 16, m2)).transpose(-1, -2), REG_LOG2, inverse, tally)
+    q = _reg_dft(pos.reshape(batch + (e, e, m2)).transpose(-1, -2), logs[0], inverse, tally)
     jj = torch.arange(m2, device=x.device)[:, None]
-    k2a = torch.arange(16, device=x.device)[None, :]
-    q = _twiddle_pow2(q, m_log2 - REG_LOG2, jj * k2a, inverse, tally)  # [.., k1, jj, k2a]
+    k2a = torch.arange(e, device=x.device)[None, :]
+    q = _twiddle_pow2(q, m_log2 - logs[0], jj * k2a, inverse, tally)  # [.., k1, jj, k2a]
     y = _reg_dft(q.transpose(-1, -2), logs[2], inverse, tally)  # [.., k1, k2a, k3]
-    # d = 16 k1 + k2a = t*(16/M2) + i, register q = i*M2 + k3
-    return y.reshape(batch + (T, 16))
+    # d = E k1 + k2a = t*(E/M2) + i, register q = i*M2 + k3
+    return y.reshape(batch + (T, e))
 
 
-def pass_model(x: torch.Tensor, m_log2: int, inverse: bool, tally=None) -> torch.Tensor:
+def pass_model(x: torch.Tensor, m_log2: int, inverse: bool, tally=None,
+               reg_log2: int = REG_LOG2, table: bool = False) -> torch.Tensor:
     """The DFT along the last axis in the kernels' pass schedule, natural
     order: ``pass_registers`` stored at ``emit_index``. The plain model the
     kernels' design is rehearsed on without the card."""
-    regs = pass_registers(x, m_log2, inverse, tally)
+    regs = pass_registers(x, m_log2, inverse, tally, reg_log2, table)
     y = torch.empty(x.shape, dtype=regs.dtype, device=x.device)
-    y[..., emit_index(m_log2).reshape(-1).to(x.device)] = regs.reshape(x.shape)
+    y[..., emit_index(m_log2, reg_log2).reshape(-1).to(x.device)] = regs.reshape(x.shape)
     return y
 
 
@@ -395,14 +409,79 @@ def phase_last_model(x: torch.Tensor, inverse: bool, scale: int = 1) -> torch.Te
     return y.reshape(mc, m2, m1)
 
 
-def pass_counts(m_log2: int, inverse: bool) -> dict:
+def pass_counts(m_log2: int, inverse: bool, reg_log2: int = REG_LOG2, table: bool = False) -> dict:
     """Field operations per vector of length 2^m_log2 in the kernels' pass
     schedule (general ``mul``; ``bfly``, the butterflies; ``mul_pow2`` by
     shift range; ``neg``), for the operation bounds of
     chip_smoke.py. The fused table twiddles and the scale are not in it."""
     tally = _Tally(1)
-    pass_model(torch.zeros(1 << m_log2, dtype=torch.int64), m_log2, inverse, tally)
+    pass_model(torch.zeros(1 << m_log2, dtype=torch.int64), m_log2, inverse, tally, reg_log2, table)
     return tally.ops
+
+
+# K5's constants, as csrc/ntt_small.cu has them (kReg, kClusterCap,
+# kMinThreads; tests/test_torch_ntt.py compares the two)
+SMALL_REG_LOG2 = 3  # a thread holds 2^3 elements of a vector
+SMALL_CLUSTER_CAP = 16  # the largest cluster
+SMALL_MIN_THREADS = 32  # a CTA's threads before the transform takes more CTAs
+
+
+def small_plan(n_log2: int) -> dict:
+    """ntt_small.cu's Small<L> for n = 2^n_log2: the factor logs l1, l2; the
+    cluster's CTAs C; a CTA's phase-A columns and phase-B rows; the threads
+    busy in each phase (na, nb) and a CTA's threads (nt)."""
+    l1 = min(10, n_log2 // 2)
+    l2 = n_log2 - l1
+    _, ta, _ = _plan(l1, SMALL_REG_LOG2)
+    _, tb, _ = _plan(l2, SMALL_REG_LOG2)
+    tot = max((1 << l2) * ta, (1 << l1) * tb)
+    c = min(max(tot // SMALL_MIN_THREADS, 1), SMALL_CLUSTER_CAP, 1 << l1)
+    cols, rows = (1 << l2) // c, (1 << l1) // c
+    return dict(l1=l1, l2=l2, C=c, cols=cols, rows=rows, na=cols * ta, nb=rows * tb,
+                nt=max(cols * ta, rows * tb))
+
+
+def small_cluster_model(a: torch.Tensor, inverse: bool, cluster: int = None) -> torch.Tensor:
+    """K5's schedule in tensor code (csrc/ntt_small.cu), for a [n], n < 2^14,
+    with a cluster of ``cluster`` CTAs (default: the kernel's, ``small_plan``).
+    Phase A: CTA c takes columns j2 = c*cols + col of A [n1, n2]; thread
+    (col, t)'s registers are x[(j1*TA + t)*n2 + j2]; the register passes
+    (``pass_registers``); register q, output k1 = ``emit_index``[t, q], times
+    ``_small_twiddles``[k1, j2] is stored in CTA c's shared memory at
+    k1*cols + col. Phase B: CTA c takes rows k1 = c*rows + r and reads
+    B[k1, j2] from CTA j2 // cols at k1*cols + j2 % cols; the register passes;
+    register q of thread t, output k2 = ``emit_index``[t, q], is stored at
+    y[k1 + n1*k2]. Raises if a shared-memory slot or an output is written
+    other than once. Returns y [n]."""
+    n = int(a.shape[0])
+    n_log2 = n.bit_length() - 1
+    p = small_plan(n_log2)
+    l1, l2, c = p["l1"], p["l2"], cluster or p["C"]
+    n1, n2 = 1 << l1, 1 << l2
+    cols, slice_ = n2 // c, n // c
+    dev = a.device
+    # phase A: the registers of column j2's threads, [n2, TA, EA]
+    regs = pass_registers(a.reshape(n1, n2).T, l1, inverse, reg_log2=SMALL_REG_LOG2, table=True)
+    k1 = emit_index(l1, SMALL_REG_LOG2).to(dev)[None]  # [1, TA, EA]
+    j2 = torch.arange(n2, device=dev)[:, None, None]
+    val = FT.mul(regs, _small_twiddles(l1, l2, inverse, dev)[k1, j2])
+    slot = (j2 // cols) * slice_ + k1 * cols + j2 % cols  # (CTA, address in its shared memory)
+    if not bool((torch.bincount(slot.reshape(-1), minlength=n) == 1).all()):
+        raise AssertionError("K5's phase A does not fill the CTAs' shared memory once each")
+    shared = torch.empty(n, dtype=a.dtype, device=dev)
+    shared[slot.reshape(-1)] = val.reshape(-1)
+    # phase B: row k1 gathered from the CTAs that hold its columns
+    rk1 = torch.arange(n1, device=dev)[:, None]
+    rj2 = torch.arange(n2, device=dev)[None, :]
+    rows = shared[(rj2 // cols) * slice_ + rk1 * cols + rj2 % cols]  # [n1, n2]
+    regs = pass_registers(rows, l2, inverse, reg_log2=SMALL_REG_LOG2, table=True)  # [n1, TB, EB]
+    k2 = emit_index(l2, SMALL_REG_LOG2).to(dev)[None]
+    addr = (rk1[:, :, None] + n1 * k2).reshape(-1)
+    if not bool((torch.bincount(addr, minlength=n) == 1).all()):
+        raise AssertionError("K5's stores do not cover the output once each")
+    y = torch.empty(n, dtype=a.dtype, device=dev)
+    y[addr] = regs.reshape(-1)
+    return y
 
 
 # ------------------------------ plain versions ------------------------------
@@ -471,15 +550,28 @@ def phase_last_plain(x, inverse: bool, scale: int = 1):
 
 
 def small_cols_plain(x, inverse: bool, tw):
-    """Plain PyTorch version of K5: x [n1, n2] -> [n1, n2]."""
+    """K5's phase A (``ntt_pallas.phase_a_kernel``), plain: x [n1, n2] ->
+    [n1, n2], the DFT down every column times tw."""
     n1 = x.shape[0]
     return FT.mul(_ntt_stages(x.T, n1.bit_length() - 1, inverse).T, tw).contiguous()
 
 
 def small_rows_plain(x, inverse: bool, scale: int = 1):
-    """Plain PyTorch version of K6: x [n1, n2] -> [n2, n1]."""
+    """K5's phase B (``ntt_pallas.phase_b_kernel``) with the scale and the
+    transpose, plain: x [n1, n2] -> [n2, n1]."""
     n2 = x.shape[1]
     return _scaled(_ntt_stages(x, n2.bit_length() - 1, inverse), scale).T.contiguous()
+
+
+def small_ntt_plain(a, inverse: bool):
+    """Plain PyTorch version of K5: the NTT of a [n], n = 2^1 .. 2^13,
+    natural order, the inverse scaled by n^-1 (phase A, then phase B)."""
+    n = int(a.shape[0])
+    n_log2 = n.bit_length() - 1
+    l1 = min(10, n_log2 // 2)
+    l2 = n_log2 - l1
+    x = small_cols_plain(a.reshape(1 << l1, 1 << l2), inverse, _twiddle_matrix(l1, l2, inverse, a.device))
+    return small_rows_plain(x, inverse, scale=G.inv(n) if inverse else 1).reshape(n)
 
 
 # ------------------------------ kernel wrappers -----------------------------
@@ -583,55 +675,49 @@ def phase_last(x, inverse: bool, scale: int = 1):
     return y
 
 
-def _small_logs(x: torch.Tensor, what: str):
-    _check_field(x, 2, what)
-    l1, l2 = x.shape[0].bit_length() - 1, x.shape[1].bit_length() - 1
-    if tuple(x.shape) != (1 << l1, 1 << l2) or max(l1, l2) > 10:
-        raise ValueError(f"{what} takes [n1, n2] with powers of two up to 2^10")
-    return l1, l2
+_small_args: Dict[Tuple, Tuple] = {}
 
 
-def small_cols(x, inverse: bool, tw):
-    """K5 wrapper: x [n1, n2] -> [n1, n2], the length-n1 DFT of every column
-    times tw [n1, n2] (the four-step twiddle w_n^(k1*j2))."""
-    if not x.is_cuda:
-        return small_cols_plain(x, inverse, tw)
-    l1, l2 = _small_logs(x, "small_cols")
-    if tuple(tw.shape) != tuple(x.shape):
-        raise ValueError("tw must have x's shape")
-    y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        rc = _kernels.lib().sezkp_ntt_small_cols(
-            x.data_ptr(), y.data_ptr(), l1, l2,
-            _wp(l1, inverse, x.device).data_ptr(), _ptr(tw, x.device), _kernels.stream_ptr(),
-        )
-    _kernels.check(rc, "ntt_small_cols")
-    small_cols.launches += 1
-    return y
+def _small_tables(n_log2: int, inverse: bool, device) -> Tuple:
+    """K5's tables for n = 2^n_log2 on `device` and the pointers the launch
+    takes (the four-step twiddles, phase A's and phase B's pass twiddles or
+    0), looked up once: the wrapper's host time is most of a small
+    transform's time issued from Python."""
+    key = (n_log2, inverse, device)
+    args = _small_args.get(key)
+    if args is None:
+        p = small_plan(n_log2)
+        tables = (_small_twiddles(p["l1"], p["l2"], inverse, device),) + tuple(
+            _pass_twiddles(l, inverse, device, SMALL_REG_LOG2) if l > SMALL_REG_LOG2 else None
+            for l in (p["l1"], p["l2"]))
+        args = _small_args[key] = (tables, tuple(_ptr(t, device) for t in tables))
+    return args
 
 
-def small_rows(x, inverse: bool, scale: int = 1):
-    """K6 wrapper: x [n1, n2] -> [n2, n1] (flat = natural order), the
-    length-n2 DFT of every row times scale."""
-    if not x.is_cuda:
-        return small_rows_plain(x, inverse, scale)
-    l1, l2 = _small_logs(x, "small_rows")
-    y = torch.empty((1 << l2, 1 << l1), dtype=torch.int64, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = _kernels.lib().sezkp_ntt_small_rows(
-            x.data_ptr(), y.data_ptr(), l1, l2,
-            _wp(l2, inverse, x.device).data_ptr(), int(scale), _kernels.stream_ptr(),
-        )
-    _kernels.check(rc, "ntt_small_rows")
-    small_rows.launches += 1
+def small_ntt(a, inverse: bool):
+    """K5 wrapper: the NTT of a [n], n = 2^1 .. 2^13, natural order in and
+    out, the inverse scaled by n^-1: one launch of one thread block cluster."""
+    if not a.is_cuda:
+        return small_ntt_plain(a, inverse)
+    _check_field(a, 1, "small_ntt")
+    n = int(a.shape[0])
+    n_log2 = n.bit_length() - 1
+    if n != 1 << n_log2 or not 1 <= n_log2 < MIN_LOG2:
+        raise ValueError(f"small_ntt takes n = 2^1 .. 2^{MIN_LOG2 - 1}")
+    tw, pta, ptb = _small_tables(n_log2, inverse, a.device)[1]
+    y = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        rc = _kernels.lib().sezkp_ntt_small(
+            a.data_ptr(), y.data_ptr(), n_log2, int(inverse), tw, pta, ptb, _kernels.stream_ptr())
+    _kernels.check(rc, "ntt_small")
+    small_ntt.launches += 1
     return y
 
 
 phase_axis.launches = 0
 phase_batched.launches = 0
 phase_last.launches = 0
-small_cols.launches = 0
-small_rows.launches = 0
+small_ntt.launches = 0
 
 
 # ------------------------------ whole transforms -----------------------------
@@ -643,16 +729,13 @@ def _ntt(a: torch.Tensor, inverse: bool) -> torch.Tensor:
     assert a.dim() == 1 and 1 << n_log2 == n
     if n <= 1:
         return a.clone()
+    a = a.contiguous()
+    if n_log2 < MIN_LOG2:
+        return small_ntt(a, inverse)
     dev = a.device
     inv_n = G.inv(n) if inverse else 1
-    a = a.contiguous()
     if a.is_cuda and a.data_ptr() % 16:
         a = a.clone()  # the phase kernels take 16-byte aligned rows
-    if n_log2 < MIN_LOG2:
-        l1 = min(10, n_log2 // 2)
-        l2 = n_log2 - l1
-        x = small_cols(a.reshape(1 << l1, 1 << l2), inverse, tw=_twiddle_matrix(l1, l2, inverse, dev))
-        return small_rows(x, inverse, scale=inv_n).reshape(n)
     logs = _factor_logs(n_log2)
     if len(logs) == 2:
         l1, l2 = logs

@@ -1,14 +1,16 @@
-"""A/B of the design choices of K2 ntt_phase_axis, K3 ntt_phase_batched and
-K4 ntt_phase_last.
+"""A/B of the design choices of K2 ntt_phase_axis, K3 ntt_phase_batched, K4
+ntt_phase_last and K5 ntt_small.
 
-Each variant is this checkout's ops/csrc with one text edit, the sources it
-concerns (ntt_phases.cu for K2/K3, ntt_last.cu for K4) built into a library
-of its own (nvcc, all variants at once, under
-sezkp_tpu_torch/_build/variants/). The main-path shapes of a T = 2^20 prove
-(the coset NTT at 2^23, the base inverse NTT at 2^20) are timed with CUDA
-events in turns: every variant, then every variant again in reverse order.
-Each variant's outputs must equal the port's own kernels'. ptxas's registers
-and spills of the main-path instantiations are printed.
+Each variant is this checkout's ops/csrc with the text edits of one design
+choice, the sources it concerns (ntt_phases.cu for K2/K3, ntt_last.cu for
+K4, ntt_small.cu for K5) built into a library of its own (nvcc, all variants
+at once, under sezkp_tpu_torch/_build/variants/). The main-path shapes of a
+T = 2^20 prove (the coset NTT at 2^23, the base inverse NTT at 2^20) and of a
+T = 2^13 prove (K5 at 2^13) are timed with CUDA events in turns: every
+variant, then every variant again in reverse order; K5, whose launch costs
+the host more than the card, replayed from a CUDA graph. Each variant's
+outputs must equal the port's own kernels'. ptxas's registers and spills of
+the main-path instantiations are printed.
 
   base             the sources as they are
   add_sub          butterflies as gl::add + gl::sub (64-bit compares and
@@ -16,6 +18,20 @@ and spills of the main-path instantiations are printed.
   mul              general products as gl::mul instead of gl::mul_cc
   k3_two_blocks    K3 without the launch bound of three blocks an SM
   k2_three_blocks  K2 with it
+  k5_reg4          K5 with 16 elements a thread (kReg = 4; two passes in
+                   phase B at 2^13, 32 threads a CTA) instead of 8
+  k5_cluster8      K5 with clusters of at most 8 CTAs (128 threads a CTA at 2^13)
+  k5_cluster4      ... of at most 4 (256 threads a CTA at 2^13)
+  k5_pow2          K5 with the twiddles between passes as powers of two up to
+                   w_64 (a branch for each value of t a warp holds) instead of
+                   the tables
+  k5_table_in_pass K5 reading its pass twiddles from the tables inside the
+                   passes instead of into registers at the start
+  k5_one_barrier   K5 with its exit barrier whole at the end instead of
+                   arriving once the peers' shared memory has been read
+  k5_row_twiddle   K5 with phase A's four-step twiddles s w_n^(k1 j2) built by
+                   products from one row, s and s w_n^j2 (rows 0 and 1 of the
+                   table), instead of read from the whole table
 
 Usage: python -m sezkp_tpu_torch.probes.ntt_variants [--variants base,mul] [--iters 50]
 (needs nvcc and the card).
@@ -41,15 +57,67 @@ from ._common import add_common_args, open_probe, rand_field, timeit
 
 _K3_BOUND = "__launch_bounds__(Plan<L>::NT, Plan<L>::NT == 256 ? 3 : 1)\nntt_phase_batched_kernel"
 _K2_BOUND = "__launch_bounds__(Plan<L>::NT)\nntt_phase_axis_kernel"
-_K23, _K4 = ("ntt_phases.cu",), ("ntt_last.cu",)
+_K23, _K4, _K5 = ("ntt_phases.cu",), ("ntt_last.cu",), ("ntt_small.cu",)
+_K5_REG4 = ("ntt_small.cu", "constexpr int kReg = 3;", "constexpr int kReg = 4;")
+
+
+def _k5_cap(c):
+    return ("ntt_small.cu", "constexpr int kClusterCap = 16;", f"constexpr int kClusterCap = {c};")
+
+
+# k5_row_twiddle: s r^k1 with s = tw[j2] and r = w_n^j2 = tw[n2 + j2] / s (1/s = n = 2^L
+# for the inverse); k1 = t*D + i + E*k2 for register q = i*T + k2
+_K5_ROW = """  constexpr int E = PA::E, T = PA::T, D = E / T;
+  const uint64_t s = __ldg(tw + j2);
+  if constexpr (E == 1) {
+    w[0] = s;
+  } else {
+    uint64_t r = __ldg(tw + n2 + j2);
+    if constexpr (INV) r = gl::mul_pow2(r, L);
+    uint64_t rd = r, re = r;  // r^D, r^E
+    static_for<ntt_reg::ilog2(D)>([&](auto) { rd = gl::mul_cc(rd, rd); });
+    static_for<ntt_reg::ilog2(E)>([&](auto) { re = gl::mul_cc(re, re); });
+    uint64_t bi[D];  // s r^(t D + i)
+    bi[0] = s;
+    for (int e = t; e; e >>= 1) {
+      if (e & 1) bi[0] = gl::mul_cc(bi[0], rd);
+      rd = gl::mul_cc(rd, rd);
+    }
+    static_for<D - 1>([&](auto i) { bi[i + 1] = gl::mul_cc(bi[i], r); });
+    uint64_t pk = re;  // r^(E k2)
+    static_for<T>([&](auto k2) {
+      static_for<D>([&](auto i) { w[i * T + k2] = k2 == 0 ? bi[i] : gl::mul_cc(bi[i], pk); });
+      if (k2 > 0) pk = gl::mul_cc(pk, re);
+    });
+  }
+"""
+
+
 # name: (the sources built, [(file, text, replacement)])
 VARIANTS = {
-    "base": (_K23 + _K4, []),
+    "base": (_K23 + _K4 + _K5, []),
     "add_sub": (_K23, [("ntt_reg.cuh", "gl::bfly(u, t, a, b);", "a = gl::add(u, t);\n  b = gl::sub(u, t);")]),
     "mul": (_K23, [("ntt_reg.cuh", "gl::mul_cc(", "gl::mul("), ("ntt_phases.cu", "gl::mul_cc(", "gl::mul(")]),
     "k3_two_blocks": (_K23, [("ntt_phases.cu", _K3_BOUND, "__launch_bounds__(Plan<L>::NT)\nntt_phase_batched_kernel")]),
     "k2_three_blocks": (_K23, [("ntt_phases.cu", _K2_BOUND,
                                 "__launch_bounds__(Plan<L>::NT, Plan<L>::NT == 256 ? 3 : 1)\nntt_phase_axis_kernel")]),
+    "k5_reg4": (_K5, [_K5_REG4]),
+    "k5_cluster8": (_K5, [_k5_cap(8)]),
+    "k5_cluster4": (_K5, [_k5_cap(4)]),
+    "k5_pow2": (_K5, [("ntt_small.cu", "run_passes<S::LA, INV, false, true>", "run_passes<S::LA, INV, false, false>"),
+                      ("ntt_small.cu", "run_passes<S::LB, INV, false, true>", "run_passes<S::LB, INV, false, false>")]),
+    "k5_table_in_pass": (_K5, [("ntt_small.cu", "a, ta, rowa, ", "a, ta, pta, "),
+                               ("ntt_small.cu", "b, tb, rowb, ", "b, tb, ptb, ")]),
+    "k5_row_twiddle": (_K5, [
+        ("ntt_small.cu", "template <class PA, int n2>\n__device__ __forceinline__ void four_step_twiddles(",
+         "template <class PA, int n2, int L, bool INV>\n__device__ __forceinline__ void four_step_twiddles("),
+        ("ntt_small.cu", "  static_for<PA::E>([&](auto q) { w[q] = __ldg(tw + emit_k<PA>(t, q) * n2 + j2); });\n",
+         _K5_ROW),
+        ("ntt_small.cu", "four_step_twiddles<PA, n2>(w, tw, ta, j2);", "four_step_twiddles<PA, n2, L, INV>(w, tw, ta, j2);")]),
+    "k5_one_barrier": (_K5, [("ntt_small.cu", "  if constexpr (S::C > 1) cluster_arrive();\n  if (live_b)",
+                              "  if (live_b)"),
+                             ("ntt_small.cu", "  if constexpr (S::C > 1) cluster_wait();\n}",
+                              "  if constexpr (S::C > 1) {\n    cluster_arrive();\n    cluster_wait();\n  }\n}")]),
 }
 
 
@@ -83,12 +151,13 @@ def _build(names):
         for line in out.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                k = re.search(r"ntt_phase_(axis|batched|last)_kernelI((?:L[ib]\d+E)+)E", m.group(1))
+                k = re.search(r"ntt_(phase_axis|phase_batched|phase_last|small)_kernelI((?:L[ib]\d+E)+)E", m.group(1))
                 args = re.findall(r"L[ib](\d+)E", k.group(2)) if k else []
-                # the main path's instantiations: K2 axis 0 at m = 64, 128; K3 at 128, 256; K4 at 128, 256
-                main = k and (args[2:] in ([], ["0"]) or k.group(1) == "last") and args[0] in (
-                    ("6", "7") if k.group(1) == "axis" else ("7", "8"))
-                func = f"ntt_phase_{k.group(1)}_kernel<{','.join(args)}>" if main else None
+                # the main path's instantiations: K2 axis 0 at m = 64, 128; K3 at 128, 256; K4 at 128, 256;
+                # K5 at 2^13
+                main = k and (args[2:] in ([], ["0"]) or k.group(1) == "phase_last") and args[0] in (
+                    ("6", "7") if k.group(1) == "phase_axis" else ("13",) if k.group(1) == "small" else ("7", "8"))
+                func = f"ntt_{k.group(1)}_kernel<{','.join(args)}>" if main else None
             elif func and "Used" in line:
                 print(f"{name:16s} {func}: {line.split(':', 1)[1].strip()}")
         lib = ctypes.CDLL(os.path.join(root, name, "lib.so"))
@@ -98,12 +167,19 @@ def _build(names):
             lib.sezkp_ntt_phase_batched.argtypes = [vp, vp, i, i, i, i, vp, vp, vp, vp]
         if "ntt_last.cu" in VARIANTS[name][0]:
             lib.sezkp_ntt_phase_last.argtypes = [vp, vp, i, i, i, i, vp, ull, vp]
+        if "ntt_small.cu" in VARIANTS[name][0]:
+            lib.sezkp_ntt_small.argtypes = [vp, vp, i, i, vp, vp, vp, vp]
+            lib.sezkp_ntt_small_cluster.argtypes = [i]
+            with open(os.path.join(root, name, "ntt_small.cu")) as f:
+                lib.k5_reg_log2 = int(re.search(r"constexpr int kReg = (\d+);", f.read()).group(1))
+            print(f"{name:16s} ntt_small_kernel<13,*>: a cluster of {lib.sezkp_ntt_small_cluster(13)} CTAs")
         libs[name] = lib
     return libs
 
 
 def _cases(dev):
-    """(label, source, call(lib), output, the port's own kernel's output) at the main path's shapes."""
+    """(label, source, call(lib), output, the port's own kernel's output,
+    replayed from a graph) at the main path's shapes."""
     cases = []
     for n_log2, inverse in ((23, False), (20, True)):
         l1, l2, l3 = NT._factor_logs(n_log2)
@@ -132,12 +208,38 @@ def _cases(dev):
                                             _kernels.stream_ptr())
 
         cases.append((f"K2 [{m1}, {m2 * m3}] 2^{n_log2}", "ntt_phases.cu", k2, y0,
-                       NT.phase_axis(x0, 0, inverse, tw=tb, tw_period=m3)))
+                       NT.phase_axis(x0, 0, inverse, tw=tb, tw_period=m3), False))
         cases.append((f"K3 [{m1}, {m2}, {m3}] 2^{n_log2}", "ntt_phases.cu", k3, y1,
-                       NT.phase_batched(x1, inverse, ta=ta, t=tm)))
+                       NT.phase_batched(x1, inverse, ta=ta, t=tm), False))
         cases.append((f"K4 [{m1}, {m2}, {m3}] 2^{n_log2}", "ntt_last.cu", k4, y2,
-                       NT.phase_last(x1, inverse, scale=scale)))
+                       NT.phase_last(x1, inverse, scale=scale), False))
+    for inverse in (True, False):
+        p = NT.small_plan(13)
+        x, y = rand_field((1 << 13,), 13 + inverse, dev), torch.empty(1 << 13, dtype=torch.int64, device=dev)
+        tw = NT._small_twiddles(p["l1"], p["l2"], inverse, dev)
+
+        def k5(lib, x=x, y=y, tw=tw, inverse=inverse, p=p):
+            # the pass tables for the variant's registers a vector, for every phase of two passes or more
+            pta, ptb = (NT._pass_twiddles(l, inverse, dev, lib.k5_reg_log2).data_ptr() if l > lib.k5_reg_log2
+                        else None for l in (p["l1"], p["l2"]))
+            return lib.sezkp_ntt_small(x.data_ptr(), y.data_ptr(), 13, int(inverse), tw.data_ptr(), pta, ptb,
+                                       _kernels.stream_ptr())
+
+        cases.append((f"K5 [8192] {'inverse' if inverse else 'forward'}", "ntt_small.cu", k5, y,
+                       NT.small_ntt(x, inverse), True))
     return cases
+
+
+def _replayed(fn, iters: int) -> float:
+    """Seconds per call on the card alone: `iters` calls captured into one
+    CUDA graph, replayed five times (the host's cost of each launch drops out)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return timeit(graph.replay, torch.device("cuda"), 5) / iters
 
 
 def main(argv=None) -> int:
@@ -159,17 +261,21 @@ def main(argv=None) -> int:
     ok = True
     times = {}
     for name in names + names[::-1]:
-        for label, src, call, y, want in cases:
+        for label, src, call, y, want, graph in cases:
             if src not in VARIANTS[name][0]:
                 continue
+            y.zero_()
             rc = call(libs[name])
             torch.cuda.synchronize(dev)
             if rc != 0 or not torch.equal(y, want):
                 ok = False
                 print(f"{name} {label}: rc {rc}, equal to the port's kernel: {torch.equal(y, want)}")
-            times.setdefault((label, name), []).append(timeit(lambda: call(libs[name]), dev, args.iters) * 1e3)
+            fn = lambda: call(libs[name])
+            ms = (_replayed(fn, 20 * args.iters) if graph else timeit(fn, dev, args.iters)) * 1e3
+            times.setdefault((label, name), []).append(ms)
     for (label, name), ms in times.items():
-        print(f"{label:26s} {name:16s} " + " ".join(f"{t:.4f}" for t in ms) + " ms")
+        how = "replayed" if label.startswith("K5") else ""
+        print(f"{label:26s} {name:16s} " + " ".join(f"{t:.4f}" for t in ms) + f" ms {how}")
     print(f"equality (every variant == the port's kernels at every shape): {ok}")
     return 0 if ok else 1
 

@@ -1,8 +1,10 @@
 """Port NTT (plain versions of the phase kernels, on the CPU) vs the JAX
 package: the MXU kernels in interpret mode at 2^14, the roll-based four-step
 kernels in interpret mode below that, the host oracle at every size, each
-phase against a direct per-axis DFT, the DEEP coset LDE, and the model of K2
-and K3's register-pass schedule (``pass_model``) at every length they take.
+phase against a direct per-axis DFT, the DEEP coset LDE, the model of the
+register-pass schedule of K2-K5 (``pass_model``) at every length they take,
+K4's tile (``phase_last_model``) and K5's cluster schedule
+(``small_cluster_model``) at every n it takes.
 
 Tolerance: none -- field elements, exact equality."""
 
@@ -57,13 +59,13 @@ def test_matches_host_oracle(k, inverse):
 
 
 def test_small_sizes_plain_on_cpu_only():
-    """Below 2^MIN_LOG2 a CPU tensor goes through the plain versions of the
-    small-n kernels (K5 then K6), and no launch is counted."""
+    """Below 2^MIN_LOG2 a CPU tensor goes through K5's plain version (phase A
+    then phase B), and no launch is counted."""
     a = _rand(1 << 8, 8)
-    before = (NT.small_cols.launches, NT.small_rows.launches)
+    before = NT.small_ntt.launches
     assert np.array_equal(NT.forward_ntt_u64(a, "cpu"), N.forward_ntt(a))
     assert np.array_equal(NT.inverse_ntt_u64(a, "cpu"), N.inverse_ntt(a))
-    assert (NT.small_cols.launches, NT.small_rows.launches) == before
+    assert NT.small_ntt.launches == before
     assert NT.MIN_LOG2 == ntt_mxu.MIN_LOG2
     one = np.array([12345], dtype=np.uint64)
     assert np.array_equal(NT.forward_ntt_u64(one, "cpu"), one)
@@ -73,8 +75,9 @@ def test_small_sizes_plain_on_cpu_only():
 @pytest.mark.parametrize("k", range(1, 14))
 @pytest.mark.parametrize("inverse", [False, True])
 def test_small_plain_vs_pallas_interpret_and_host_oracle(k, inverse):
-    """small_cols_plain / small_rows_plain composed as the wrappers compose
-    them == the Pallas four-step kernels (interpret mode) == the host oracle."""
+    """small_cols_plain / small_rows_plain composed as small_ntt_plain
+    composes them == K5's cluster schedule (small_cluster_model) == the
+    Pallas four-step kernels (interpret mode) == the host oracle."""
     a = _rand(1 << k, 100 + k)
     l1 = min(10, k // 2)
     l2 = k - l1
@@ -83,6 +86,8 @@ def test_small_plain_vs_pallas_interpret_and_host_oracle(k, inverse):
     y = NT.small_rows_plain(x, inverse, scale=G.inv(1 << k) if inverse else 1)
     assert tuple(y.shape) == (1 << l2, 1 << l1) and y.is_contiguous()
     got = FT.unpack(y).reshape(-1)
+    assert np.array_equal(FT.unpack(NT.small_ntt_plain(FT.pack(a), inverse)), got)
+    assert np.array_equal(FT.unpack(NT.small_cluster_model(FT.pack(a), inverse)), got)
     if inverse:
         assert np.array_equal(got, N.inverse_ntt(a))
         assert np.array_equal(got, ntt_pallas.inverse_ntt_u64(a))
@@ -100,13 +105,17 @@ def test_small_phases_plain_vs_direct_dft(inverse):
     x = rng.integers(0, P, (n1, n2), dtype=np.uint64)
     tw = rng.integers(0, P, (n1, n2), dtype=np.uint64)
     scale = 987654321987654321 % P
-    got = NT.small_cols(FT.pack(x), inverse, FT.pack(tw))
+    got = NT.small_cols_plain(FT.pack(x), inverse, FT.pack(tw))
     assert np.array_equal(FT.unpack(got), G.mul(_dft_rows(x.T.copy(), inverse).T, tw))
-    got = NT.small_rows(FT.pack(x), inverse, scale=scale)
+    got = NT.small_rows_plain(FT.pack(x), inverse, scale=scale)
     assert np.array_equal(FT.unpack(got), G.mul(_dft_rows(x, inverse), np.uint64(scale)).T)
     # a factor of 1 is the identity transform (n = 2 has n1 = 1)
     row = FT.pack(x[:1])
-    assert np.array_equal(FT.unpack(NT.small_cols(row, inverse, FT.pack(tw[:1]))), G.mul(x[:1], tw[:1]))
+    assert np.array_equal(FT.unpack(NT.small_cols_plain(row, inverse, FT.pack(tw[:1]))), G.mul(x[:1], tw[:1]))
+    # the whole transform: K5 on a CPU tensor is its plain version
+    flat = x.reshape(-1)
+    want = N.inverse_ntt(flat) if inverse else N.forward_ntt(flat)
+    assert np.array_equal(FT.unpack(NT.small_ntt(FT.pack(flat), inverse)), want)
 
 
 def _dft_rows(x, inverse):
@@ -176,10 +185,10 @@ def test_phase_wrappers_count_no_launch_on_cpu():
     NT.phase_batched(x.reshape(2, 4, 8), False)
     NT.phase_last(x.reshape(2, 4, 8), False)
     assert (NT.phase_axis.launches, NT.phase_batched.launches, NT.phase_last.launches) == before
-    before = (NT.small_cols.launches, NT.small_rows.launches)
-    NT.small_cols(x, False, x)
-    NT.small_rows(x, False)
-    assert (NT.small_cols.launches, NT.small_rows.launches) == before
+    before = NT.small_ntt.launches
+    NT.small_ntt(x.reshape(-1), False)
+    NT.small_ntt(x.reshape(-1), True)
+    assert NT.small_ntt.launches == before
 
 
 def test_deep_coset_lde_matches_jax():
@@ -192,9 +201,20 @@ def test_deep_coset_lde_matches_jax():
 
 
 def test_tables_cached_per_device():
-    a = NT._wp(7, False, "cpu")
-    assert NT._wp(7, False, torch.device("cpu")) is a
-    assert NT._wp(7, True, "cpu") is not a
+    a = NT._small_twiddles(3, 4, True, "cpu")
+    assert NT._small_twiddles(3, 4, True, torch.device("cpu")) is a
+    assert NT._small_twiddles(3, 4, False, "cpu") is not a
+    # the forward table is the four-step table itself; the inverse's has n^-1 in it
+    assert NT._small_twiddles(3, 4, False, "cpu") is NT._twiddle_matrix(3, 4, False, "cpu")
+    assert torch.equal(a, FT.mul(NT._twiddle_matrix(3, 4, True, "cpu"), FT.scalar(G.inv(1 << 7), a)))
+    # K5's launch arguments at 2^13: the tables above and the pass tables of
+    # both phases (two passes each), looked up once, pointers included
+    tables, ptrs = NT._small_tables(13, True, torch.device("cpu"))
+    assert NT._small_tables(13, True, torch.device("cpu"))[0] is tables
+    assert tables[0] is NT._small_twiddles(6, 7, True, "cpu")
+    assert [tuple(t.shape) for t in tables[1:]] == [(8, 8), (16, 8)]
+    assert ptrs == tuple(t.data_ptr() for t in tables)
+    assert NT._small_tables(3, False, torch.device("cpu"))[1][1:] == (0, 0)  # one pass a phase: no pass tables
 
 
 # ------------------- the register-pass schedule of K2 and K3 -------------------
@@ -288,10 +308,12 @@ def test_phase_last_model_matches_plain_and_jax(m_log2, inverse, m1):
 
 
 def test_emit_index_is_a_permutation():
-    """Every output index k is emitted by exactly one (thread, register)."""
+    """Every output index k is emitted by exactly one (thread, register), with
+    16 registers a vector (K2-K4) and with 8 (at most three passes: m <= 2^9)."""
     for m_log2 in range(1, 11):
-        k = NT.emit_index(m_log2)
-        assert sorted(k.reshape(-1).tolist()) == list(range(1 << m_log2))
+        for reg_log2 in (4, 3) if m_log2 <= 9 else (4,):
+            k = NT.emit_index(m_log2, reg_log2)
+            assert sorted(k.reshape(-1).tolist()) == list(range(1 << m_log2))
 
 
 @pytest.mark.parametrize("m_log2", [4, 7, 8, 10])
@@ -307,3 +329,56 @@ def test_pass_counts(m_log2):
         assert c.get("mul", 0) == (15 * m // 16 if m_log2 >= 7 else 0)
         pow2 = sum(v for k, v in c.items() if k.startswith("pow2_"))
         assert 0 < pow2 < m * m_log2 // 2
+
+
+@pytest.mark.parametrize("m_log2", range(1, 10))
+@pytest.mark.parametrize("inverse", [False, True])
+def test_pass_model_with_8_registers_matches_jax(m_log2, inverse):
+    """The pass schedule with 8 registers a vector (ntt_reg.cuh's Plan<L, 3>:
+    up to three passes of radix 8) == the JAX package's _ntt_stages, at every
+    length it takes."""
+    m = 1 << m_log2
+    rng = np.random.default_rng(700 + 2 * m_log2 + inverse)
+    x = rng.integers(0, P, (3, m), dtype=np.uint64)
+    x[0, 0], x[-1, -1], x[1, :] = 0, P - 1, P - 1
+    got = NT.pass_model(FT.pack(x), m_log2, inverse, reg_log2=3)
+    lo, hi = _jax_stages(m_log2)(*FJ.pack(x), ntt_jax._tables_packed(m_log2, inverse))
+    assert np.array_equal(FT.unpack(got), FJ.unpack((lo, hi)))
+
+
+# ------------------------- K5's cluster schedule -------------------------
+
+
+def test_small_constants_match_kernel_source():
+    """ntt_torch's copies of K5's constants equal csrc/ntt_small.cu's, and the
+    plan covers every n = 2^1 .. 2^13 with whole warps from 2^9 up."""
+    src = open(os.path.join(os.path.dirname(NT.__file__), "csrc", "ntt_small.cu")).read()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const == {"kReg": NT.SMALL_REG_LOG2, "kClusterCap": NT.SMALL_CLUSTER_CAP,
+                     "kMinThreads": NT.SMALL_MIN_THREADS}
+    for k in range(1, NT.MIN_LOG2):
+        p = NT.small_plan(k)
+        c, n1, n2 = p["C"], 1 << p["l1"], 1 << p["l2"]
+        assert c & (c - 1) == 0 and c <= min(NT.SMALL_CLUSTER_CAP, n1) and n2 % c == 0
+        assert p["nt"] == max(p["na"], p["nb"]) and p["cols"] * n1 == p["rows"] * n2 == (1 << k) // c
+        if k >= 8:  # whole warps, every thread busy in both phases
+            assert p["na"] == p["nb"] == p["nt"] and p["nt"] % 32 == 0
+    assert [NT.small_plan(k)["C"] for k in (8, 9, 10, 11, 12, 13)] == [1, 2, 4, 8, 16, 16]
+
+
+@pytest.mark.parametrize("k", range(1, 14))
+@pytest.mark.parametrize("inverse", [False, True])
+def test_small_cluster_model_matches_oracle_and_plain(k, inverse):
+    """K5's schedule in tensor code (CTA column slices, the register passes of
+    each phase, the four-step twiddle with n^-1 folded in, the row gathered
+    from the CTAs' shared memory, the natural-order store by address) ==
+    small_ntt_plain == the JAX host oracle, with the cluster the launch picks
+    and with every other cluster size that divides the transform (up to 16)."""
+    a = _rand(1 << k, 900 + 2 * k + inverse)
+    want = N.inverse_ntt(a) if inverse else N.forward_ntt(a)
+    t = FT.pack(a)
+    assert np.array_equal(FT.unpack(NT.small_ntt_plain(t, inverse)), want)
+    n1 = 1 << NT.small_plan(k)["l1"]
+    for c in [1 << i for i in range(5) if 1 << i <= n1]:
+        assert np.array_equal(FT.unpack(NT.small_cluster_model(t, inverse, c)), want), c
+    assert np.array_equal(FT.unpack(NT.small_cluster_model(t, inverse)), want)
