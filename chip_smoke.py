@@ -9,7 +9,7 @@ Phases (any failure ends the run with a non-zero exit code):
   env           card name and power limit, versions; builds the native host
                 library (g++) and the CUDA kernels (nvcc) from the sources in
                 this checkout; ptxas's registers, spills and shared memory of
-                K4, K5 and K8.
+                K4, K5, K8 and K11.
   kernels       every hand-written kernel against its plain PyTorch version
                 on the card, exact equality (tolerance 0: integer code), at
                 reduced and at main-path shapes; kernel, plain and bound times.
@@ -27,9 +27,12 @@ Phases (any failure ends the run with a non-zero exit code):
                 phases on the tensor cores) at reduced shapes and at the
                 probes' shapes: K8 also against torch._int_mm, K10 with
                 elements in against K2 on the same input, the folded forward
-                NTT (K2, K3, K11) against forward_ntt at 2^20 and 2^23; K8
-                also at M, K, N that are multiples of 64 but not of its
-                256 x 128 tile and 128-byte k chunk.
+                NTT (K2, K3, K11) against forward_ntt at 2^18, 2^20 and 2^23;
+                K8 also at M, K, N that are multiples of 64 but not of its
+                256 x 128 tile and 128-byte k chunk; K11 also at the edges of
+                its tiles (one and three slices, 48 rows, last factors 32 and
+                1024, an X 8 bytes off a 16-byte boundary) and timed replayed
+                from a CUDA graph.
   prove         T = 2^20, b = 512, tau = 8 on the device-resident route:
                 generate_trace -> partition_trace -> commit_blocks ->
                 StarkV1.prove (on the card) -> StarkV1.verify; a tampered
@@ -83,8 +86,9 @@ Phases (any failure ends the run with a non-zero exit code):
                 built kernels and a one-primitive probe and prints the
                 instruction counts, by issue pipe, that the operation bounds
                 of the kernels phase rest on, with a sha256 of each kernel's
-                instructions, K4's instructions per element by pipe and K5's
-                registers, spills and instruction mix at every n; the
+                instructions, K4's instructions per element by pipe, K5's
+                registers, spills and instruction mix at every n, and K8's,
+                K10's and K11's registers, spills and shared memory; the
                 text goes to chiprun_out/sass/. With
                 --sass-csrc DIR (the ops/csrc of another checkout) it builds
                 those sources too and says which kernels are the same code.
@@ -226,8 +230,8 @@ def phase_env(state) -> None:
     if not b3.HAVE_NATIVE:
         fail("native host library (g++) did not build or load")
     t1 = time.time()
-    # ptxas's registers, spills and shared memory of K4, K5 and K8, built beside the library
-    ptxas = _ptxas_start(("ntt_last.cu", "ntt_small.cu", "i8_gemm.cu"))
+    # ptxas's registers, spills and shared memory of K4, K5, K8 and K11, built beside the library
+    ptxas = _ptxas_start(("ntt_last.cu", "ntt_small.cu", "i8_gemm.cu", "digit_dft_last.cu"))
     _kernels.lib()
     log(f"[env] set-up: native host lib {t1 - t0:.1f} s, CUDA kernels {_kernels.build_seconds:.1f} s")
     for func, usage in sorted(_ptxas_usage(ptxas)[1].items()):
@@ -737,9 +741,11 @@ def _kernels_digit_form(kern, gen, dev) -> None:
             fail(f"{name} != its reference at {what}: max |difference| {errs[name]}")
 
     def edge_field(shape):
+        # MAX_BAL + 1 has the digit -128 in planes 4-7, p - 0x80808080 in planes 0-3
         x = _field_rand(shape, gen, dev)
         x.view(-1)[2] = FT._i64(ND.MAX_BAL)
         x.view(-1)[3] = FT._i64(ND.MAX_BAL + 1)
+        x.view(-1)[4] = FT._i64(FT.P_INT - 0x80808080)
         return x
 
     # ---- K8 i8_gemm
@@ -881,24 +887,44 @@ def _kernels_digit_form(kern, gen, dev) -> None:
         cpu_table = ND.folded_table(l2, l3, inverse, scale, "cpu") if m2 * mc * mc <= 1 << 20 else None
         if cpu_table is not None and not torch.equal(wf.cpu(), cpu_table):
             fail("folded_table on the card != folded_table on the CPU")
+    # the edges of its tiles, on random tables whose first 16 rows of slice 0
+    # are all -128 (the diagonal sums' bound): one slice, three slices, 48
+    # rows (a 64-row tile cut at the tensor's edge), the smallest and the
+    # largest last factor, and an X 8 bytes off a 16-byte boundary
+    for m2e, mce, colse in ((1, 128, 64), (3, 64, 32), (2, 32, 48), (1, 32, 16), (1, 1024, 16)):
+        xe = edge_field((colse, m2e * mce))
+        wfe = _rand_i8((m2e, mce, ND.NDIG, mce), m2e * mce + colse, dev)
+        wfe[0, :16] = -128
+        hold("digit_dft_last", ND.digit_dft_last(xe, wfe), ND.digit_dft_last_plain(xe, wfe),
+             f"random table m2={m2e} mc={mce} cols={colse}")
+    xe = edge_field((64 * 2 * 128 + 1,))[1:].view(64, 2 * 128)
+    wfe = _rand_i8((2, 128, ND.NDIG, 128), 7, dev)
+    if xe.data_ptr() % 16 != 8:
+        fail("the misaligned K11 input is not 8 bytes off a 16-byte boundary")
+    hold("digit_dft_last", ND.digit_dft_last(xe, wfe), ND.digit_dft_last_plain(xe, wfe), "X 8 bytes off a 16-byte boundary")
+    del xe, wfe
     n = cols * m2 * mc
     bnd, by = _bound(8 * n + wf.numel() + 8 * n, 2 * ND.NDIG * ND.NDIG * mc * n)
     kern["digit_dft_last"] = dict(
-        name="digit_dft_last", route="cuda", source="sezkp_tpu_torch/ops/csrc/digit_dft.cu",
+        name="digit_dft_last", route="cuda", source="sezkp_tpu_torch/ops/csrc/digit_dft_last.cu",
         replaces="scripts/ntt_twiddle_fold_ab.py:101",
         shape=f"int64 [{cols}, {m2}*{mc}] x folded table int8 [{m2}, {mc}, 8, {mc}] -> int64 [{mc}, {m2}*{cols}]",
-        ms=time_cuda(lambda: ND.digit_dft_last(x, wf), 10),
+        ms=time_cuda(lambda: ND.digit_dft_last(x, wf), 20),
+        graph_ms=time_cuda_graph(lambda: ND.digit_dft_last(x, wf), 20),
         plain_ms=time_cuda(lambda: ND.digit_dft_last_plain(x, wf), 1),
         bound_ms=bnd, bound_by=by, library_ms=None,
     )
+    kern["digit_dft_last"]["bound_share"] = bnd / kern["digit_dft_last"]["ms"]
     del x, wf, want
     for n_log2 in (18, 20, 23):
         a = edge_field((1 << n_log2,))
         hold("digit_dft_last", ND.forward_ntt_folded(a), NT.forward_ntt(a), f"forward_ntt_folded at 2^{n_log2}")
     kern["digit_dft_last"]["folded_forward_2^23_ms"] = time_cuda(lambda: ND.forward_ntt_folded(a), 10)
     kern["digit_dft_last"]["forward_2^23_ms"] = time_cuda(lambda: NT.forward_ntt(a), 10)
-    log(f"[kernels] K11 digit_dft_last == plain; forward_ntt_folded == forward_ntt at 2^18, 2^20, 2^23: "
-        f"{kern['digit_dft_last']['ms']:.3f} ms; whole transform {kern['digit_dft_last']['folded_forward_2^23_ms']:.3f} ms "
+    log(f"[kernels] K11 digit_dft_last == plain (three folded tables, five edge shapes, a misaligned X); "
+        f"forward_ntt_folded == forward_ntt at 2^18, 2^20, 2^23: {kern['digit_dft_last']['ms']:.4f} ms issued, "
+        f"{kern['digit_dft_last']['graph_ms']:.4f} replayed at 2^23 (bound {kern['digit_dft_last']['bound_ms']:.4f}); "
+        f"whole transform {kern['digit_dft_last']['folded_forward_2^23_ms']:.3f} ms "
         f"folded against {kern['digit_dft_last']['forward_2^23_ms']:.3f} ms")
     for name, e in errs.items():
         kern[name]["max_abs_err"] = e
@@ -968,8 +994,8 @@ def _short(name: str) -> str:
     """ntt_phase_axis_kernel<7,0,0> for a mangled K2-K5 name; other names as they are."""
     k = re.search(r"(ntt_(?:phase_\w+?|small)_kernel)(?:I((?:L[ib]\d+E)+)E)?", name)
     if not k:
-        i8 = re.search(r"\d(i8_[a-z_]+_kernel)", name)
-        return i8.group(1) if i8 else name
+        other = re.search(r"\d((?:i8|gl|digit)_[a-z_]+_kernel)", name)
+        return other.group(1) if other else name
     return f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2) or ''))}>"
 
 
@@ -1051,11 +1077,14 @@ def phase_sass(state) -> None:
                    + json.dumps({r: pair('mul_pow2_' + r) for r in ('lo', 'mid', 'hi')})
                    + f"; GL_BFLY_OPS = {pair('bfly')}; GL_MULCC_OPS = {pair('mul_cc')}")
 
-    # registers, spills and shared memory of K2-K5's instantiations (ptxas)
-    ptxas, usage = _ptxas_usage(_ptxas_start(("ntt_phases.cu", "ntt_last.cu", "ntt_small.cu")))
+    # registers, spills and shared memory of K2-K5's instantiations and of K8, K10, K11 (ptxas)
+    ptxas, usage = _ptxas_usage(_ptxas_start(("ntt_phases.cu", "ntt_last.cu", "ntt_small.cu", "i8_gemm.cu",
+                                              "digit_dft.cu", "digit_dft_last.cu")))
     with open("chiprun_out/sass/ptxas_ntt_phases.txt", "w") as f:
         f.write(ptxas)
     summary += [f"ptxas {f}: {' | '.join(u)}" for f, u in sorted(usage.items())]
+    summary.append(f"digit_dft_last_kernel: {_kernels.lib().sezkp_digit_dft_last_smem()} bytes of dynamic shared memory "
+                   "a block (one block an SM)")
 
     text, funcs = _sass_functions(cuobjdump, _kernels.build())
     # the unrolled K2/K3 instantiations make the text large: compressed

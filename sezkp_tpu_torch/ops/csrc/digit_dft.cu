@@ -1,12 +1,11 @@
-// K10 digit_dft and K11 digit_dft_last: one DFT phase Y = W @ X of the
-// Goldilocks NTT computed the digit way, on the tensor cores.
+// K10 digit_dft: one DFT phase Y = W @ X of the Goldilocks NTT computed the
+// digit way, on the tensor cores. (K11 digit_dft_last, the last phase with
+// folded twiddles, has a TMA + wgmma kernel of its own: digit_dft_last.cu.)
 //
 // K10 replaces the Pallas kernels `k_dots` and `k_dr` of
 // scripts/exp_ntt_breakdown.py (the digit-pair products of one phase summed
 // by diagonal, ntt_mxu._dot_digits, then either the plain sum of the
-// diagonals or the recombination mod p, ntt_mxu._recombine); K11 replaces
-// `_last_call_t_folded` of scripts/ntt_twiddle_fold_ab.py (the last phase with
-// one table per middle index k2 and the natural-order transposed store).
+// diagonals or the recombination mod p, ntt_mxu._recombine).
 //
 // The arithmetic: every operand is 8 balanced base-256 digits of its signed
 // representative, so W @ X over the integers is sum_{i,j} 256^(i+j) W_j @ X_i,
@@ -21,20 +20,16 @@
 // What bounds it on an H100: the operations, 2 * 64 * m MACs per output
 // element over the dense int8 tensor-core rate; the bytes (8 per element in
 // as digits or as u64, 8 out, the table once) are 5 to 40 times less time at
-// m = 128 .. 1024. What the design does about it: one kernel for both, in its
-// simple form. Both are the same product once K11 is read as
-// Y_k2^T[k3, k1] = sum_b3 W'[k2][k3, b3] X[k1, k2, b3]: the columns of the
-// right operand are the k1 rows of the input, whose b3 run is contiguous in
-// memory, which is what the instruction wants (contraction index contiguous
-// for both operands). A block of four warps owns `bn` columns: it fills shared
+// m = 128 .. 1024. What the design does about it: its simple form (K10 runs
+// one slice of `Params`' strided slices). A block of four warps owns `bn`
+// columns: it fills shared
 // memory once with the 8 digit planes of its columns over the whole
 // contraction ([plane][column][k], digitised on the way when the input is
 // field elements), then walks down the rows of W in steps of 16 * warps_m,
 // staging the 8 digit planes of those rows of the table per k chunk, each
 // warp holding the 15 diagonals of a 16 x 16 output tile in registers (120 of
 // them) and issuing 128 `mma.sync.m16n8k32` per 32 of k. The epilogue runs on
-// the accumulator registers and stores straight to the output, for K11 at
-// Y[k3, (k2, k1)], whose flat order is the natural order of the transform.
+// the accumulator registers and stores straight to the output.
 // No asynchronous copies, no wgmma, one stage.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -255,29 +250,4 @@ extern "C" int sezkp_digit_dft(const void* w, const void* xdig, const void* x, v
   p.ncols = other;
   p.epilogue = epilogue;
   return launch(p, 1, (cudaStream_t)stream);
-}
-
-// K11. x: u64 [cols, m2 * mc] = X[k1, (k2, b3)]. wf: int8 [m2, mc, 8, mc] =
-// digit d of W'[k2][k3, b3] at [k2][k3][d][b3]. out: u64 [mc, m2 * cols] =
-// Y[k3, (k2, k1)], Y[k3, k2, k1] = sum_b3 X[k1, k2, b3] W'[k2][k3, b3] mod p.
-// mc a power of two in 32 .. 1024, cols a multiple of 16, m2 <= 65535.
-extern "C" int sezkp_digit_dft_last(const void* wf, const void* x, void* out, int cols, int m2,
-                                    int mc, void* stream) {
-  Params p{};
-  p.w = (const int8_t*)wf;
-  p.w_slice = (long long)mc * kNdig * mc;
-  p.w_dig = mc;
-  p.w_row = (long long)kNdig * mc;
-  p.xdig = nullptr;
-  p.x = (const uint64_t*)x;
-  p.x_slice = mc;
-  p.x_k = 1;
-  p.x_col = (long long)m2 * mc;
-  p.out = out;
-  p.o_row = (long long)m2 * cols;
-  p.o_slice = cols;
-  p.m = mc;
-  p.ncols = cols;
-  p.epilogue = 1;
-  return launch(p, m2, (cudaStream_t)stream);
 }

@@ -1,7 +1,7 @@
-// int8 x int8 -> int32 tile products on the tensor cores (mma.sync) for
-// K10/K11 (digit_dft.cu), and the balanced base-256 digits of a Goldilocks
-// element, shared by K9 (gl_digits.cu) and K10/K11. (K8, i8_gemm.cu, runs
-// wgmma: tma_wgmma.cuh.)
+// int8 x int8 -> int32 tile products on the tensor cores (mma.sync) for K10
+// (digit_dft.cu), and the balanced base-256 digits of a Goldilocks element
+// with a 4 x 4 byte transpose, shared by K9 (gl_digits.cu), K10 and K11
+// (digit_dft_last.cu). (K8, i8_gemm.cu, and K11 run wgmma: tma_wgmma.cuh.)
 //
 // The product is one warp-wide `mma.sync.aligned.m16n8k32` (inline PTX): A is
 // 16 rows x 32 k (row-major, k contiguous), B is 32 k x 8 columns (column-

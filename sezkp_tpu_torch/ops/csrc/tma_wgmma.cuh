@@ -1,7 +1,7 @@
 // Hopper's asynchronous pieces in inline PTX (sm_90a): mbarriers, TMA tile
 // loads and stores (cp.async.bulk.tensor), and the warpgroup product
-// `wgmma.mma_async` for int8 operands. Used by K8 i8_gemm (i8_gemm.cu); the
-// int8 digit kernels K10/K11 can take the same pieces.
+// `wgmma.mma_async` for int8 operands, and the host's tensor-map encoder. Used
+// by K8 i8_gemm (i8_gemm.cu) and K11 digit_dft_last (digit_dft_last.cu).
 //
 // wgmma with 8-bit operands takes both A and B K-major (the transpose flags
 // exist for 16-bit types only). B comes from shared memory: a tile of rows
@@ -10,6 +10,7 @@
 // from registers.
 #pragma once
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -60,7 +61,22 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// a 3-D box at (c0 innermost, c1, c2)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];"
+      ::"r"(smem_u32(dst)), "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // shared -> global; the part of the box outside the tensor is not written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];"
+               ::"l"((uint64_t)map), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
   asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];"
                ::"l"((uint64_t)map), "r"(smem_u32(src)), "r"(c0), "r"(c1)
@@ -161,6 +177,47 @@ __device__ __forceinline__ void wgmma_m64n256k32_s8_rs(int (&d)[128], const uint
         "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
         "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 32] += A[64 x 32] B[32 x 32]: wgmma_m64n256k32_s8_rs's operands and
+// layouts with N = 32, d[4i .. 4i + 3] for i < 4. (An int8 wgmma issues at the
+// dense rate from N = 32 up, not at N = 16: probes/wgmma_rate.py.)
+__device__ __forceinline__ void wgmma_m64n32k32_s8_rs(int (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %21, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p;\n\t}"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ---- tensor maps (host): cuTensorMapEncodeTiled, looked up through the
+// runtime's entry-point query (no link against libcuda). A `rank`-D tensor
+// at `base`: dims[0] innermost (contiguous), strides[i] the bytes between
+// neighbours along dims[i + 1]; boxes of box[] elements, the 128-byte swizzle
+// or none, zeros outside the tensor on loads, clipped stores.
+inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base,
+                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box, bool swizzle) {
+  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                             const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                             CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode enc = nullptr;
+  if (!enc) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return false;
+    enc = reinterpret_cast<Encode>(p);
+  }
+  const cuuint32_t estr[5] = {1, 1, 1, 1, 1};
+  return enc(map, type, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

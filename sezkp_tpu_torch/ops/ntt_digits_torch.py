@@ -25,10 +25,11 @@ Kernels (CUDA C++, ops/csrc/), each with its plain version here:
   or from elements, ending in the sum of the diagonals (int32) or the
   recombination (field elements). Plain: ``digit_dft_plain`` on
   ``dot_digits_plain`` and ``recombine_plain``.
-- **K11 ``digit_dft_last``** (digit_dft.cu): the last phase of the three-factor
-  transform with one table per middle index k2 (the middle twiddle folded
-  into the table) and the natural-order transposed store. Plain:
-  ``digit_dft_last_plain``.
+- **K11 ``digit_dft_last``** (digit_dft_last.cu): the last phase of the
+  three-factor transform with one table per middle index k2 (the middle
+  twiddle folded into the table) and the natural-order transposed store; a
+  persistent TMA + wgmma kernel. Plain: ``digit_dft_last_plain``; its tile
+  schedule in tensor code: ``digit_dft_last_model``.
 
 A wrapper launches its kernel for a CUDA tensor and runs its plain version
 only for a CPU tensor. The plain versions compute the integer matrix products
@@ -305,6 +306,143 @@ def digit_dft_last_plain(x: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
     return y.permute(2, 0, 1).reshape(mc, m2 * cols).contiguous()
 
 
+# K11's schedule (csrc/digit_dft_last.cu): k1 rows of a tile (wgmma's M), k3
+# columns of an N-tile (wgmma's N), consumer warpgroups, and the b3 spans of
+# the digit cache, of an X stage and of a W stage
+K11_TILE = dict(rows=64, n=32, wgs=2, chunk=256, xb=16, wb=128)
+# the diagonals each consumer warpgroup accumulates, 32 digit products each
+K11_PARTS = ((0, 1, 2, 3, 4, 5, 6, 11), (7, 8, 9, 10, 12, 13, 14))
+
+
+def k11_balanced_digits(v: torch.Tensor) -> torch.Tensor:
+    """``i8mma::balanced_digits`` on int64 tensors holding u64 bits: v - p where
+    v > MAX_BAL, then one 64-bit add of 0x80 to every byte and one xor; digit
+    k of the signed representative in byte k (two's complement)."""
+    k80 = FT._i64(0x8080808080808080)
+    v = torch.where(FT._ult(torch.full_like(v, FT._i64(MAX_BAL)), v), v - FT._P_I64, v)
+    return (v + k80) ^ k80
+
+
+def k11_fragment_map() -> Tuple[torch.Tensor, torch.Tensor]:
+    """([128, 16] row, [128, 16] k) of every byte of a consumer thread's A
+    fragment of one k32 step, as wgmma (mma.m16n8k32's layout) reads it:
+    thread t = 32 w + 4 g + q holds word c (bytes 4c .. 4c + 3) at row
+    16 w + g + 8 (c % 2), k = 16 (c // 2) + 4 q + byte."""
+    t = torch.arange(128)[:, None]
+    c, b = torch.arange(16)[None, :] // 4, torch.arange(16)[None, :] % 4
+    w, g, q = t // 32, t % 32 // 4, t % 4
+    return 16 * w + g + 8 * (c % 2), 16 * (c // 2) + 4 * q + b
+
+
+def _k11_digitize(xp: torch.Tensor, k2: int, h: int, kc: int, mc: int) -> torch.Tensor:
+    """One chunk of the digit cache as the consumer threads write it, uint8
+    [chunk / 32 steps, NDIG planes, 128 threads, 16 bytes]. X stage j (16 b3
+    of the tile's 64 rows) lands with TMA's 128-byte swizzle (16-byte unit u
+    of row r at unit u ^ (r % 8)); warpgroup j % 2 takes it, thread (w, g, q)
+    reading rows 16 w + g and + 8 at units 2q, 2q + 1 (elements 4q .. 4q + 3)
+    and writing their digits as words 2 (j % 2) and 2 (j % 2) + 1 of its
+    fragment of step j // 2."""
+    rows, xb, cs = K11_TILE["rows"], K11_TILE["xb"], min(mc, K11_TILE["chunk"])
+    cache = torch.zeros((cs // 32, NDIG, 128, 16), dtype=torch.uint8)
+    t = torch.arange(128)
+    w, g, q = t // 32, t % 32 // 4, t % 4
+    r = torch.arange(rows)[:, None]
+    for j in range(cs // xb):
+        c0 = k2 * mc + kc * cs + xb * j
+        box = xp[rows * h : rows * (h + 1), c0 : c0 + xb].reshape(rows, 8, 2)
+        smem = torch.empty_like(box)
+        smem[r, torch.arange(8)[None, :] ^ (r % 8)] = box
+        s, half = divmod(j, 2)
+        for rr in range(2):
+            row = 16 * w + g + 8 * rr
+            e = torch.cat([smem[row, (2 * q) ^ (row % 8)], smem[row, (2 * q + 1) ^ (row % 8)]], dim=1)
+            d = k11_balanced_digits(e)  # [128, 4]: element c's digit words
+            for i in range(NDIG):
+                at = 8 * half + 4 * rr
+                cache[s, i, :, at : at + 4] = ((d >> (8 * i)) & 255).to(torch.uint8)
+    return cache
+
+
+def k11_recombine(diags: Dict[int, torch.Tensor]) -> torch.Tensor:
+    """The kernel's recombination of the diagonals it is given (int64 sums,
+    |s_d| <= 2^27; the others 0): sum_d s_d 2^(8d) mod p through the 8 folded
+    signed sums (2^64 = 2^32 - 1, 2^96 = -1) as lo = sum_{r<4} sig_r 2^(8r),
+    hi = sum_{r<4} sig_(r+4) 2^(8r), and lo + (hi >> 32)(2^32 - 1) +
+    (hi mod 2^32) 2^32, each part canonical. Returns int64 holding u64 bits."""
+    shape = next(iter(diags.values())).shape
+    s = [[int(v) for v in diags[d].reshape(-1)] if d in diags else None for d in range(DIAGS)]
+    out = []
+    for e in range(len(next(v for v in s if v is not None))):
+        v = [0 if sd is None else sd[e] for sd in s]
+        if max(abs(x) for x in v) > 1 << 27:
+            raise AssertionError("a diagonal sum is past its bound")
+        sig = [v[0] - v[8] - v[12], v[1] - v[9] - v[13], v[2] - v[10] - v[14], v[3] - v[11],
+               v[4] + v[8], v[5] + v[9], v[6] + v[10], v[7] + v[11]]
+        lo = sum(sig[r] << (8 * r) for r in range(4))
+        hi = sum(sig[4 + r] << (8 * r) for r in range(4))
+        t = lo + (hi >> 32) * FT.EPS  # |t| < 2^55
+        tc = t + FT.P_INT if t < 0 else t
+        out.append(FT._i64(((((hi & 0xFFFFFFFF) << 32) % FT.P_INT) + tc) % FT.P_INT))
+    return torch.tensor(out, dtype=torch.int64).reshape(shape)
+
+
+def digit_dft_last_model(x: torch.Tensor, wf: torch.Tensor, grid: int = 3) -> torch.Tensor:
+    """K11's schedule in tensor code (csrc/digit_dft_last.cu), for the inputs
+    of ``digit_dft_last_plain``. `grid` persistent blocks; block b takes tiles
+    b, b + grid, ... of (k2, h) = divmod(tile, halves): 64 rows k1 from 64 h
+    (TMA's zeros below row cols) of slice k2. Per tile, the N-tiles p (32 k3
+    from 32 p), per N-tile the b3 chunks of 256; a chunk's digits are
+    (re)built into the cache when there is more than one chunk or p = 0 (the
+    kernel builds it step by step, each step's just before its products). Per
+    k32 step of a chunk, A is plane i of the cache read by the fragment map,
+    B the W stage's plane j (32 rows, b3 from the stage's 128, zeros past
+    mc), and warpgroup wg adds the product to diagonal i + j when that is one
+    of K11_PARTS[wg]. Each warpgroup recombines its diagonals; the tile is
+    the sum of the two mod p, stored at Y[k3, k2 cols + k1] where k1 < cols.
+    Raises if an output element is written other than once."""
+    rows, n, wb = K11_TILE["rows"], K11_TILE["n"], K11_TILE["wb"]
+    m2, mc, cols = wf.shape[0], wf.shape[1], x.shape[0]
+    halves = -(-cols // rows)
+    cs = min(mc, K11_TILE["chunk"])
+    nk, spc = mc // cs, cs // 32
+    wspc = min(4, spc)  # k32 steps a W stage
+    xp = torch.zeros((halves * rows, m2 * mc), dtype=torch.int64)
+    xp[:cols] = x
+    wp = torch.zeros((m2, mc, NDIG, -(-mc // wb) * wb), dtype=torch.float64)
+    wp[..., :mc] = wf.to(torch.float64)
+    frow, fk = k11_fragment_map()
+    out = torch.zeros((mc, m2 * cols), dtype=torch.int64)
+    writes = torch.zeros((mc, m2 * cols), dtype=torch.int64)
+    for b in range(grid):
+        for tile in range(b, m2 * halves, grid):
+            k2, h = divmod(tile, halves)
+            for p in range(mc // n):
+                acc = [{d: torch.zeros((rows, n), dtype=torch.int64) for d in part} for part in K11_PARTS]
+                for kc in range(nk):
+                    if nk > 1 or p == 0:
+                        cache = _k11_digitize(xp, k2, h, kc, mc)
+                    for s in range(spc):
+                        a = torch.zeros((NDIG, rows, 32), dtype=torch.float64)
+                        a[:, frow, fk] = cache[s].view(torch.int8).to(torch.float64)
+                        b0 = kc * cs + (s // wspc) * wb + 32 * (s % wspc)
+                        bw = wp[k2, n * p : n * (p + 1), :, b0 : b0 + 32]  # [k3, plane j, k]
+                        prod = torch.einsum("irk,njk->ijrn", a, bw).to(torch.int64)
+                        for part in acc:
+                            for i in range(NDIG):
+                                for j in range(NDIG):
+                                    if i + j in part:
+                                        part[i + j] += prod[i, j]
+                y = [k11_recombine(part) for part in acc]  # [k1 rows, k3]
+                tile_y = FT.add(y[0], y[1])
+                live = min(rows, cols - rows * h)
+                c0 = k2 * cols + rows * h
+                out[n * p : n * (p + 1), c0 : c0 + live] = tile_y[:live].T
+                writes[n * p : n * (p + 1), c0 : c0 + live] += 1
+    if not bool((writes == 1).all()):
+        raise AssertionError("K11's stores do not cover the output once each")
+    return out
+
+
 # ------------------------------ kernel wrappers ------------------------------
 
 
@@ -409,7 +547,9 @@ def digit_dft(src, w, epilogue: str = "recombine", elements: bool = False):
 def digit_dft_last(x: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
     """K11 wrapper. x: field [cols, m2 * mc] = X[k1, (k2, b3)]; wf: int8
     [m2, mc, NDIG, mc] (`folded_table`). Returns field [mc, m2 * cols] =
-    Y[k3, (k2, k1)]: flat, the natural order of the transform."""
+    Y[k3, (k2, k1)]: flat, the natural order of the transform. On the card
+    an operand that is not 16-byte aligned (TMA's rule) is copied to one
+    that is."""
     _need(x, torch.int64, 2, "x")
     _need(wf, torch.int8, 4, "wf")
     m2, mc = wf.shape[0], wf.shape[1]
@@ -421,6 +561,7 @@ def digit_dft_last(x: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
     _check_m(mc, cols, "digit_dft_last")
     if m2 > 65535:
         raise ValueError("digit_dft_last takes m2 <= 65535")
+    x, wf = (t.clone() if t.data_ptr() % 16 else t for t in (x, wf))
     out = torch.empty((mc, m2 * cols), dtype=torch.int64, device=x.device)
     with torch.cuda.device(x.device):
         rc = _kernels.lib().sezkp_digit_dft_last(

@@ -1,14 +1,15 @@
 """A/B of the design choices of K2 ntt_phase_axis, K3 ntt_phase_batched, K4
-ntt_phase_last and K5 ntt_small.
+ntt_phase_last, K5 ntt_small and K11 digit_dft_last.
 
 Each variant is this checkout's ops/csrc with the text edits of one design
 choice, the sources it concerns (ntt_phases.cu for K2/K3, ntt_last.cu for
-K4, ntt_small.cu for K5) built into a library of its own (nvcc, all variants
-at once, under sezkp_tpu_torch/_build/variants/). The main-path shapes of a
-T = 2^20 prove (the coset NTT at 2^23, the base inverse NTT at 2^20) and of a
-T = 2^13 prove (K5 at 2^13) are timed with CUDA events in turns: every
-variant, then every variant again in reverse order; K5, whose launch costs
-the host more than the card, replayed from a CUDA graph. Each variant's
+K4, ntt_small.cu for K5, digit_dft_last.cu for K11) built into a library of
+its own (nvcc, all variants at once, under sezkp_tpu_torch/_build/variants/).
+The main-path shapes of a T = 2^20 prove (the coset NTT at 2^23, the base
+inverse NTT at 2^20), of a T = 2^13 prove (K5 at 2^13) and of the probes
+(K11's phase C at 2^23) are timed with CUDA events in turns: every variant,
+then every variant again in reverse order; K5, whose launch costs the host
+more than the card, and K11 replayed from a CUDA graph. Each variant's
 outputs must equal the port's own kernels'. ptxas's registers and spills of
 the main-path instantiations are printed.
 
@@ -32,6 +33,13 @@ the main-path instantiations are printed.
   k5_row_twiddle   K5 with phase A's four-step twiddles s w_n^(k1 j2) built by
                    products from one row, s and s w_n^j2 (rows 0 and 1 of the
                    table), instead of read from the whole table
+  k11_chained      K11 issuing a k32 step's products diagonal by diagonal, so
+                   that consecutive products add into the same accumulators,
+                   instead of plane by plane of W (consecutive products into
+                   different diagonals)
+  k11_wait0        K11 waiting for a step's products before the next step's
+                   fragments are loaded and issued, instead of one step
+                   behind (double-buffered fragments)
 
 Usage: python -m sezkp_tpu_torch.probes.ntt_variants [--variants base,mul] [--iters 50]
 (needs nvcc and the card).
@@ -52,12 +60,21 @@ import torch
 from ..ops import _kernels
 from ..ops import goldilocks as G
 from ..ops import goldilocks_torch as FT
+from ..ops import ntt_digits_torch as ND
 from ..ops import ntt_torch as NT
 from ._common import add_common_args, open_probe, rand_field, timeit
 
 _K3_BOUND = "__launch_bounds__(Plan<L>::NT, Plan<L>::NT == 256 ? 3 : 1)\nntt_phase_batched_kernel"
 _K2_BOUND = "__launch_bounds__(Plan<L>::NT)\nntt_phase_axis_kernel"
-_K23, _K4, _K5 = ("ntt_phases.cu",), ("ntt_last.cu",), ("ntt_small.cu",)
+_K23, _K4, _K5, _K11 = ("ntt_phases.cu",), ("ntt_last.cu",), ("ntt_small.cu",), ("digit_dft_last.cu",)
+_K11_PRODUCTS = """        for (int j = 0; j < kNdig; ++j)
+#pragma unroll
+          for (int k = 0; k < NP; ++k) {
+            const int i = part_diag(WG, k) - j;"""
+_K11_CHAINED = """        for (int k = 0; k < NP; ++k)
+#pragma unroll
+          for (int j = 0; j < kNdig; ++j) {
+            const int i = part_diag(WG, k) - j;"""
 _K5_REG4 = ("ntt_small.cu", "constexpr int kReg = 3;", "constexpr int kReg = 4;")
 
 
@@ -95,7 +112,7 @@ _K5_ROW = """  constexpr int E = PA::E, T = PA::T, D = E / T;
 
 # name: (the sources built, [(file, text, replacement)])
 VARIANTS = {
-    "base": (_K23 + _K4 + _K5, []),
+    "base": (_K23 + _K4 + _K5 + _K11, []),
     "add_sub": (_K23, [("ntt_reg.cuh", "gl::bfly(u, t, a, b);", "a = gl::add(u, t);\n  b = gl::sub(u, t);")]),
     "mul": (_K23, [("ntt_reg.cuh", "gl::mul_cc(", "gl::mul("), ("ntt_phases.cu", "gl::mul_cc(", "gl::mul(")]),
     "k3_two_blocks": (_K23, [("ntt_phases.cu", _K3_BOUND, "__launch_bounds__(Plan<L>::NT)\nntt_phase_batched_kernel")]),
@@ -118,6 +135,9 @@ VARIANTS = {
                               "  if (live_b)"),
                              ("ntt_small.cu", "  if constexpr (S::C > 1) cluster_wait();\n}",
                               "  if constexpr (S::C > 1) {\n    cluster_arrive();\n    cluster_wait();\n  }\n}")]),
+    "k11_chained": (_K11, [("digit_dft_last.cu", _K11_PRODUCTS, _K11_CHAINED)]),
+    "k11_wait0": (_K11, [("digit_dft_last.cu", "        wgmma_wait<1>();  // step s - 1 is done",
+                          "        wgmma_wait<0>();  // step s - 1 is done")]),
 }
 
 
@@ -158,6 +178,8 @@ def _build(names):
                 main = k and (args[2:] in ([], ["0"]) or k.group(1) == "phase_last") and args[0] in (
                     ("6", "7") if k.group(1) == "phase_axis" else ("13",) if k.group(1) == "small" else ("7", "8"))
                 func = f"ntt_{k.group(1)}_kernel<{','.join(args)}>" if main else None
+                if "digit_dft_last_kernel" in m.group(1):
+                    func = "digit_dft_last_kernel"
             elif func and "Used" in line:
                 print(f"{name:16s} {func}: {line.split(':', 1)[1].strip()}")
         lib = ctypes.CDLL(os.path.join(root, name, "lib.so"))
@@ -173,13 +195,16 @@ def _build(names):
             with open(os.path.join(root, name, "ntt_small.cu")) as f:
                 lib.k5_reg_log2 = int(re.search(r"constexpr int kReg = (\d+);", f.read()).group(1))
             print(f"{name:16s} ntt_small_kernel<13,*>: a cluster of {lib.sezkp_ntt_small_cluster(13)} CTAs")
+        if "digit_dft_last.cu" in VARIANTS[name][0]:
+            lib.sezkp_digit_dft_last.argtypes = [vp, vp, vp, i, i, i, vp]
         libs[name] = lib
     return libs
 
 
 def _cases(dev):
     """(label, source, call(lib), output, the port's own kernel's output,
-    replayed from a graph) at the main path's shapes."""
+    calls captured into a graph for each iteration, 0 for issued ones) at the
+    main path's shapes."""
     cases = []
     for n_log2, inverse in ((23, False), (20, True)):
         l1, l2, l3 = NT._factor_logs(n_log2)
@@ -208,11 +233,11 @@ def _cases(dev):
                                             _kernels.stream_ptr())
 
         cases.append((f"K2 [{m1}, {m2 * m3}] 2^{n_log2}", "ntt_phases.cu", k2, y0,
-                       NT.phase_axis(x0, 0, inverse, tw=tb, tw_period=m3), False))
+                       NT.phase_axis(x0, 0, inverse, tw=tb, tw_period=m3), 0))
         cases.append((f"K3 [{m1}, {m2}, {m3}] 2^{n_log2}", "ntt_phases.cu", k3, y1,
-                       NT.phase_batched(x1, inverse, ta=ta, t=tm), False))
+                       NT.phase_batched(x1, inverse, ta=ta, t=tm), 0))
         cases.append((f"K4 [{m1}, {m2}, {m3}] 2^{n_log2}", "ntt_last.cu", k4, y2,
-                       NT.phase_last(x1, inverse, scale=scale), False))
+                       NT.phase_last(x1, inverse, scale=scale), 0))
     for inverse in (True, False):
         p = NT.small_plan(13)
         x, y = rand_field((1 << 13,), 13 + inverse, dev), torch.empty(1 << 13, dtype=torch.int64, device=dev)
@@ -226,7 +251,17 @@ def _cases(dev):
                                        _kernels.stream_ptr())
 
         cases.append((f"K5 [8192] {'inverse' if inverse else 'forward'}", "ntt_small.cu", k5, y,
-                       NT.small_ntt(x, inverse), True))
+                       NT.small_ntt(x, inverse), 20))
+    # K11 on phase C of the folded forward NTT at 2^23
+    l1, l2, l3 = ND._factor_logs(23)
+    cols, m2, mc = 1 << l1, 1 << l2, 1 << l3
+    x, wf = rand_field((cols, m2 * mc), 23, dev), ND.folded_table(l2, l3, False, 1, dev)
+    y = torch.empty((mc, m2 * cols), dtype=torch.int64, device=dev)
+
+    def k11(lib, x=x, wf=wf, y=y):
+        return lib.sezkp_digit_dft_last(wf.data_ptr(), x.data_ptr(), y.data_ptr(), cols, m2, mc, _kernels.stream_ptr())
+
+    cases.append((f"K11 [{cols}, {m2}*{mc}] 2^23", "digit_dft_last.cu", k11, y, ND.digit_dft_last(x, wf), 1))
     return cases
 
 
@@ -261,7 +296,7 @@ def main(argv=None) -> int:
     ok = True
     times = {}
     for name in names + names[::-1]:
-        for label, src, call, y, want, graph in cases:
+        for label, src, call, y, want, per_iter in cases:
             if src not in VARIANTS[name][0]:
                 continue
             y.zero_()
@@ -271,10 +306,10 @@ def main(argv=None) -> int:
                 ok = False
                 print(f"{name} {label}: rc {rc}, equal to the port's kernel: {torch.equal(y, want)}")
             fn = lambda: call(libs[name])
-            ms = (_replayed(fn, 20 * args.iters) if graph else timeit(fn, dev, args.iters)) * 1e3
+            ms = (_replayed(fn, per_iter * args.iters) if per_iter else timeit(fn, dev, args.iters)) * 1e3
             times.setdefault((label, name), []).append(ms)
     for (label, name), ms in times.items():
-        how = "replayed" if label.startswith("K5") else ""
+        how = "replayed" if label.startswith(("K5", "K11")) else ""
         print(f"{label:26s} {name:16s} " + " ".join(f"{t:.4f}" for t in ms) + f" ms {how}")
     print(f"equality (every variant == the port's kernels at every shape): {ok}")
     return 0 if ok else 1

@@ -224,3 +224,15 @@ def test_ntt_variants_edit_the_sources_as_they_are(capsys):
             assert old != new
     assert ntt_variants.main(["--device", "cpu"]) == 0
     assert "needs nvcc and the card" in capsys.readouterr().out
+
+
+def test_wgmma_rate_needs_the_card(capsys):
+    """The wgmma rate probe builds and times on the card only; its source
+    lies beside it, no part of the kernel library."""
+    from sezkp_tpu_torch.probes import wgmma_rate
+
+    assert os.path.exists(os.path.join(os.path.dirname(wgmma_rate.__file__), "wgmma_rate.cu"))
+    assert wgmma_rate.GROUP_OPS == 2 * 64 * 16 * 32 * wgmma_rate.PRODUCTS[16]
+    assert all(n * p == 16 * 64 for n, p in wgmma_rate.PRODUCTS.items())
+    assert wgmma_rate.main(["--device", "cpu"]) == 0
+    assert "needs nvcc and the card" in capsys.readouterr().out

@@ -65,16 +65,36 @@ def _blocks_equal(a, b):
         assert x.pre_tags == y.pre_tags and x.post_tags == y.post_tags
 
 
-@pytest.fixture(scope="module", params=[(1 << 13, 256, 2), (1 << 14, 512, 8)],
-                ids=["T13_b256_tau2", "T14_b512_tau8"])
-def case(request):
-    t, b, tau = request.param
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Several test workers share the machine: with a full set of OpenMP
+    threads in each, the port's proves on the CPU slow down by multiples.
+    Two threads keep them quick in any company."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def make_case(t, b, tau):
+    """Blocks, manifest and proofs of one case: the port's on its host-columns
+    route with the device parts forced, and the JAX package's."""
     ref_blocks = ref_partition_trace(ref_generate_trace(t, tau), b)
     blocks = partition_trace(generate_trace(t, tau), b)
     man = commit_blocks(blocks)
     proof = prove_v1(blocks, man.root, device="cpu", **FORCE_DEVICE)
     ref = ref_prove_v1(ref_blocks, man.root)
     return dict(ref_blocks=ref_blocks, blocks=blocks, man=man, proof=proof, ref=ref)
+
+
+# T = 2^14, b = 512, tau = 8 runs the same six tests in test_torch_prove_t14.py:
+# a file of its own, so that a run that gives each file to one worker builds
+# the two JAX reference proves side by side
+@pytest.fixture(scope="module", params=[(1 << 13, 256, 2)], ids=["T13_b256_tau2"])
+def case(request):
+    return make_case(*request.param)
 
 
 def test_inputs_equal_field_for_field(case):
