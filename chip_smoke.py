@@ -9,7 +9,7 @@ Phases (any failure ends the run with a non-zero exit code):
   env           card name and power limit, versions; builds the native host
                 library (g++) and the CUDA kernels (nvcc) from the sources in
                 this checkout; ptxas's registers, spills and shared memory of
-                K4, K5, K8 and K11.
+                K4, K5, K8, K10 and K11.
   kernels       every hand-written kernel against its plain PyTorch version
                 on the card, exact equality (tolerance 0: integer code), at
                 reduced and at main-path shapes; kernel, plain and bound times.
@@ -25,14 +25,17 @@ Phases (any failure ends the run with a non-zero exit code):
                 batches from 1 to 1000003 messages, against its plain version
                 and against the host hasher. K8-K11 (the digit form of the NTT
                 phases on the tensor cores) at reduced shapes and at the
-                probes' shapes: K8 also against torch._int_mm, K10 with
-                elements in against K2 on the same input, the folded forward
+                probes' shapes: K8 also against torch._int_mm, K10 in all
+                four (source, epilogue) combinations at seven shapes (m = 1024
+                with 48 columns among them), with operands 8 bytes off a
+                16-byte boundary and against an all -128 table, with elements
+                in against K2 on the same input, the folded forward
                 NTT (K2, K3, K11) against forward_ntt at 2^18, 2^20 and 2^23;
                 K8 also at M, K, N that are multiples of 64 but not of its
                 256 x 128 tile and 128-byte k chunk; K11 also at the edges of
                 its tiles (one and three slices, 48 rows, last factors 32 and
-                1024, an X 8 bytes off a 16-byte boundary) and timed replayed
-                from a CUDA graph.
+                1024, an X 8 bytes off a 16-byte boundary); K10 and K11 timed
+                issued and replayed from a CUDA graph.
   prove         T = 2^20, b = 512, tau = 8 on the device-resident route:
                 generate_trace -> partition_trace -> commit_blocks ->
                 StarkV1.prove (on the card) -> StarkV1.verify; a tampered
@@ -230,8 +233,8 @@ def phase_env(state) -> None:
     if not b3.HAVE_NATIVE:
         fail("native host library (g++) did not build or load")
     t1 = time.time()
-    # ptxas's registers, spills and shared memory of K4, K5, K8 and K11, built beside the library
-    ptxas = _ptxas_start(("ntt_last.cu", "ntt_small.cu", "i8_gemm.cu", "digit_dft_last.cu"))
+    # ptxas's registers, spills and shared memory of K4, K5, K8, K10 and K11, built beside the library
+    ptxas = _ptxas_start(("ntt_last.cu", "ntt_small.cu", "i8_gemm.cu", "digit_dft.cu", "digit_dft_last.cu"))
     _kernels.lib()
     log(f"[env] set-up: native host lib {t1 - t0:.1f} s, CUDA kernels {_kernels.build_seconds:.1f} s")
     for func, usage in sorted(_ptxas_usage(ptxas)[1].items()):
@@ -841,19 +844,45 @@ def _kernels_digit_form(kern, gen, dev) -> None:
     )
     log(f"[kernels] K9 gl_digits == plain in both layouts: {kern['gl_digits']['ms']:.3f} ms at [256, 32768]")
 
-    # ---- K10 digit_dft: against the plain version, and elements-in against K2
+    # ---- K10 digit_dft: against the plain version in every (source, epilogue), and elements-in against K2
     for m_log2, other, inverse in ((5, 32, False), (6, 48, True), (7, 128, False), (9, 64, True), (10, 32, False),
-                                   (8, 32768, False)):
+                                   (8, 32768, False), (10, 48, True)):
         m = 1 << m_log2
         a = edge_field((m, other))
         w = ND.w_digits(m_log2, inverse, 1, dev)
         what = f"m={m} other={other} inverse={inverse}"
         stack = ND.stack_kmajor(ND.digits_plain(a))
-        want = ND.digit_dft_plain(stack, w, "recombine")
-        hold("digit_dft", ND.digit_dft(stack, w, "recombine"), want, what + " stack in")
-        hold("digit_dft", ND.digit_dft(a, w, "recombine", elements=True), want, what + " elements in")
+        for epilogue in ("recombine", "sum"):
+            want = ND.digit_dft_plain(stack, w, epilogue)
+            hold("digit_dft", ND.digit_dft(stack, w, epilogue), want, f"{what} stack in, {epilogue}")
+            hold("digit_dft", ND.digit_dft(a, w, epilogue, elements=True), want, f"{what} elements in, {epilogue}")
         hold("digit_dft", ND.digit_dft(a, w, "recombine", elements=True), NT.phase_axis(a, 0, inverse), what + " (K2)")
-        hold("digit_dft", ND.digit_dft(stack, w, "sum"), ND.digit_dft_plain(stack, w, "sum"), what + " sum")
+    # operands 8 bytes off a 16-byte boundary: the wrapper copies them to aligned ones
+    m, other = 64, 80
+    w = ND.w_digits(6, False, 1, dev)
+    xe = edge_field((m * other + 1,))[1:].view(m, other)
+    se = _rand_i8((ND.NDIG * other * m + 8,), 9, dev)[8:].view(ND.NDIG, other, m)
+    if xe.data_ptr() % 16 != 8 or se.data_ptr() % 16 != 8:
+        fail("the misaligned K10 inputs are not 8 bytes off a 16-byte boundary")
+    for epilogue in ("recombine", "sum"):
+        hold("digit_dft", ND.digit_dft(xe, w, epilogue, elements=True),
+             ND.digit_dft_plain(xe, w, epilogue, elements=True), f"elements 8 bytes off a 16-byte boundary, {epilogue}")
+        hold("digit_dft", ND.digit_dft(se, w, epilogue), ND.digit_dft_plain(se, w, epilogue),
+             f"stack 8 bytes off a 16-byte boundary, {epilogue}")
+    # a random stack whose first 16 columns are all -128 against an all -128
+    # table: those outputs' diagonal sums reach their bound (2^27 at m = 1024)
+    m, other = 1024, 64
+    x8 = _rand_i8((ND.NDIG, other, m), 4, dev)
+    x8[:, :16] = -128
+    wneg = torch.full((ND.NDIG * m, m), -128, dtype=torch.int8, device=dev)
+    for epilogue in ("recombine", "sum"):
+        hold("digit_dft", ND.digit_dft(x8, wneg, epilogue), ND.digit_dft_plain(x8, wneg, epilogue),
+             f"random stack against an all -128 table, m={m}, {epilogue}")
+    del xe, se, wneg
+    # times at one phase of n = 2^23
+    m, other = 256, 32768
+    w = ND.w_digits(8, False, 1, dev)
+    a = edge_field((m, other))
     x8 = _rand_i8((ND.NDIG, other, m), 3, dev)
     hold("digit_dft", ND.digit_dft(x8, w, "sum"), ND.digit_dft_plain(x8, w, "sum"), "random digit stack, sum")
     hold("digit_dft", ND.digit_dft(x8, w, "recombine"), ND.digit_dft_plain(x8, w, "recombine"),
@@ -861,20 +890,29 @@ def _kernels_digit_form(kern, gen, dev) -> None:
     n = m * other
     macs = ND.NDIG * ND.NDIG * m * n
     bnd, by = _bound(8 * n + w.numel() + 8 * n, 2 * macs)
+    calls = {"": lambda: ND.digit_dft(x8, w, "recombine"), "sum_": lambda: ND.digit_dft(x8, w, "sum"),
+             "elements_in_": lambda: ND.digit_dft(a, w, "recombine", elements=True)}
+    times = {}
+    for key, fn in calls.items():
+        times[key + "ms"] = time_cuda(fn, 20)
+        times[key + "graph_ms"] = time_cuda_graph(fn, 20)
     kern["digit_dft"] = dict(
         name="digit_dft", route="cuda", source="sezkp_tpu_torch/ops/csrc/digit_dft.cu",
         replaces="scripts/exp_ntt_breakdown.py:112", also_replaces=["scripts/exp_ntt_breakdown.py:92"],
         shape=f"int8 digit stack [8, {other}, {m}] x table int8 [8*{m}, {m}] -> int64 [{m}, {other}], recombined",
-        ms=time_cuda(lambda: ND.digit_dft(x8, w, "recombine"), 10),
-        sum_ms=time_cuda(lambda: ND.digit_dft(x8, w, "sum"), 10),
-        elements_in_ms=time_cuda(lambda: ND.digit_dft(a, w, "recombine", elements=True), 10),
+        **times,
         k2_same_input_ms=time_cuda(lambda: NT.phase_axis(a, 0, False), 10),
         plain_ms=time_cuda(lambda: ND.digit_dft_plain(x8, w, "recombine"), 1),
         bound_ms=bnd, bound_by=by, library_ms=None,
+        # the sum stores 4 bytes an output: its bound by bytes is lower, by operations the same
+        sum_bound_ms=_bound(8 * n + w.numel() + 4 * n, 2 * macs)[0],
     )
+    kern["digit_dft"]["bound_share"] = bnd / kern["digit_dft"]["ms"]
     del x8, stack, want
-    log(f"[kernels] K10 digit_dft == plain (stack in, elements in, both epilogues) == K2: "
-        f"{kern['digit_dft']['ms']:.3f} ms against K2's {kern['digit_dft']['k2_same_input_ms']:.3f} ms at [256, 32768]")
+    log("[kernels] K10 digit_dft == plain (stack in, elements in, both epilogues, seven shapes, misaligned "
+        "operands, the diagonal bound) == K2: at [256, 32768] "
+        + json.dumps({k: round(v, 4) for k, v in times.items()})
+        + f" (bound {bnd:.4f}), K2 {kern['digit_dft']['k2_same_input_ms']:.4f} ms")
 
     # ---- K11 digit_dft_last and the folded transform
     for (l2, l3, cols), inverse, scale in (((2, 5, 64), False, 1), ((3, 7, 16), True, 977), ((8, 8, 128), False, 1)):
@@ -991,11 +1029,15 @@ def _unit(op: str) -> str:
 
 
 def _short(name: str) -> str:
-    """ntt_phase_axis_kernel<7,0,0> for a mangled K2-K5 name; other names as they are."""
+    """ntt_phase_axis_kernel<7,0,0> for a mangled K2-K5 name, digit_dft_kernel<1,0>
+    for K10's (source, epilogue); other names as they are."""
     k = re.search(r"(ntt_(?:phase_\w+?|small)_kernel)(?:I((?:L[ib]\d+E)+)E)?", name)
     if not k:
-        other = re.search(r"\d((?:i8|gl|digit)_[a-z_]+_kernel)", name)
-        return other.group(1) if other else name
+        other = re.search(r"\d((?:i8|gl|digit)_[a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?", name)
+        if not other:
+            return name
+        args = re.findall(r"L[ib](\d+)E", other.group(2) or "")
+        return other.group(1) + (f"<{','.join(args)}>" if args else "")
     return f"{k.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', k.group(2) or ''))}>"
 
 
@@ -1083,8 +1125,8 @@ def phase_sass(state) -> None:
     with open("chiprun_out/sass/ptxas_ntt_phases.txt", "w") as f:
         f.write(ptxas)
     summary += [f"ptxas {f}: {' | '.join(u)}" for f, u in sorted(usage.items())]
-    summary.append(f"digit_dft_last_kernel: {_kernels.lib().sezkp_digit_dft_last_smem()} bytes of dynamic shared memory "
-                   "a block (one block an SM)")
+    summary.append(f"digit_dft_kernel<*,*> (K10) and digit_dft_last_kernel (K11), one body (digit_wgmma.cuh): "
+                   f"{_kernels.lib().sezkp_digit_dft_last_smem()} bytes of dynamic shared memory a block (one block an SM)")
 
     text, funcs = _sass_functions(cuobjdump, _kernels.build())
     # the unrolled K2/K3 instantiations make the text large: compressed

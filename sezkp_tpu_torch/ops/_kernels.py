@@ -30,7 +30,7 @@ _SOURCES = (
 )
 _HEADERS = (
     "blake3_round.cuh", "goldilocks.cuh", "ntt_reg.cuh", "i8_mma.cuh",
-    "smem_opt_in.cuh", "tma_wgmma.cuh",
+    "smem_opt_in.cuh", "tma_wgmma.cuh", "digit_wgmma.cuh",
 )
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,7 +1,7 @@
 // Hopper's asynchronous pieces in inline PTX (sm_90a): mbarriers, TMA tile
 // loads and stores (cp.async.bulk.tensor), and the warpgroup product
 // `wgmma.mma_async` for int8 operands, and the host's tensor-map encoder. Used
-// by K8 i8_gemm (i8_gemm.cu) and K11 digit_dft_last (digit_dft_last.cu).
+// by K8 i8_gemm (i8_gemm.cu) and by K10 and K11 (digit_wgmma.cuh).
 //
 // wgmma with 8-bit operands takes both A and B K-major (the transpose flags
 // exist for 16-bit types only). B comes from shared memory: a tile of rows

@@ -23,13 +23,17 @@ Kernels (CUDA C++, ops/csrc/), each with its plain version here:
   ``digits_plain`` and the two ``stack_*`` layouts.
 - **K10 ``digit_dft``** (digit_dft.cu): one axis-0 phase from a digit stack
   or from elements, ending in the sum of the diagonals (int32) or the
-  recombination (field elements). Plain: ``digit_dft_plain`` on
-  ``dot_digits_plain`` and ``recombine_plain``.
+  recombination (field elements); K11's kernel body with one table. Plain:
+  ``digit_dft_plain`` on ``dot_digits_plain`` and ``recombine_plain``; its
+  tile schedule in tensor code: ``digit_dft_model``.
 - **K11 ``digit_dft_last``** (digit_dft_last.cu): the last phase of the
   three-factor transform with one table per middle index k2 (the middle
-  twiddle folded into the table) and the natural-order transposed store; a
-  persistent TMA + wgmma kernel. Plain: ``digit_dft_last_plain``; its tile
-  schedule in tensor code: ``digit_dft_last_model``.
+  twiddle folded into the table) and the natural-order transposed store.
+  Plain: ``digit_dft_last_plain``; its tile schedule in tensor code:
+  ``digit_dft_last_model``.
+
+K10 and K11 are one persistent TMA + wgmma kernel template
+(csrc/digit_wgmma.cuh), instantiated per X source and epilogue.
 
 A wrapper launches its kernel for a CUDA tensor and runs its plain version
 only for a CPU tensor. The plain versions compute the integer matrix products
@@ -306,7 +310,7 @@ def digit_dft_last_plain(x: torch.Tensor, wf: torch.Tensor) -> torch.Tensor:
     return y.permute(2, 0, 1).reshape(mc, m2 * cols).contiguous()
 
 
-# K11's schedule (csrc/digit_dft_last.cu): k1 rows of a tile (wgmma's M), k3
+# K11's schedule, and K10's (csrc/digit_wgmma.cuh): k1 rows of a tile (wgmma's M), k3
 # columns of an N-tile (wgmma's N), consumer warpgroups, and the b3 spans of
 # the digit cache, of an X stage and of a W stage
 K11_TILE = dict(rows=64, n=32, wgs=2, chunk=256, xb=16, wb=128)
@@ -369,26 +373,23 @@ def k11_recombine(diags: Dict[int, torch.Tensor]) -> torch.Tensor:
     signed sums (2^64 = 2^32 - 1, 2^96 = -1) as lo = sum_{r<4} sig_r 2^(8r),
     hi = sum_{r<4} sig_(r+4) 2^(8r), and lo + (hi >> 32)(2^32 - 1) +
     (hi mod 2^32) 2^32, each part canonical. Returns int64 holding u64 bits."""
-    shape = next(iter(diags.values())).shape
-    s = [[int(v) for v in diags[d].reshape(-1)] if d in diags else None for d in range(DIAGS)]
-    out = []
-    for e in range(len(next(v for v in s if v is not None))):
-        v = [0 if sd is None else sd[e] for sd in s]
-        if max(abs(x) for x in v) > 1 << 27:
-            raise AssertionError("a diagonal sum is past its bound")
-        sig = [v[0] - v[8] - v[12], v[1] - v[9] - v[13], v[2] - v[10] - v[14], v[3] - v[11],
-               v[4] + v[8], v[5] + v[9], v[6] + v[10], v[7] + v[11]]
-        lo = sum(sig[r] << (8 * r) for r in range(4))
-        hi = sum(sig[4 + r] << (8 * r) for r in range(4))
-        t = lo + (hi >> 32) * FT.EPS  # |t| < 2^55
-        tc = t + FT.P_INT if t < 0 else t
-        out.append(FT._i64(((((hi & 0xFFFFFFFF) << 32) % FT.P_INT) + tc) % FT.P_INT))
-    return torch.tensor(out, dtype=torch.int64).reshape(shape)
+    like = next(iter(diags.values()))
+    v = [diags[d].to(torch.int64) if d in diags else torch.zeros_like(like, dtype=torch.int64) for d in range(DIAGS)]
+    if max(int(x.abs().max()) for x in v) > 1 << 27:
+        raise AssertionError("a diagonal sum is past its bound")
+    sig = [v[0] - v[8] - v[12], v[1] - v[9] - v[13], v[2] - v[10] - v[14], v[3] - v[11],
+           v[4] + v[8], v[5] + v[9], v[6] + v[10], v[7] + v[11]]
+    lo = sum(sig[r] << (8 * r) for r in range(4))
+    hi = sum(sig[4 + r] << (8 * r) for r in range(4))
+    t = lo + (hi >> 32) * FT.EPS  # |t| < 2^55: exact in int64
+    tc = torch.where(t < 0, t + FT._P_I64, t)  # the u64 bits of t + p
+    return FT.add(FT._canon((hi & 0xFFFFFFFF) << 32), tc)
 
 
 def digit_dft_last_model(x: torch.Tensor, wf: torch.Tensor, grid: int = 3) -> torch.Tensor:
-    """K11's schedule in tensor code (csrc/digit_dft_last.cu), for the inputs
-    of ``digit_dft_last_plain``. `grid` persistent blocks; block b takes tiles
+    """K11's schedule in tensor code (csrc/digit_dft_last.cu on
+    digit_wgmma.cuh), for the inputs of ``digit_dft_last_plain``. `grid`
+    persistent blocks; block b takes tiles
     b, b + grid, ... of (k2, h) = divmod(tile, halves): 64 rows k1 from 64 h
     (TMA's zeros below row cols) of slice k2. Per tile, the N-tiles p (32 k3
     from 32 p), per N-tile the b3 chunks of 256; a chunk's digits are
@@ -440,6 +441,109 @@ def digit_dft_last_model(x: torch.Tensor, wf: torch.Tensor, grid: int = 3) -> to
                 writes[n * p : n * (p + 1), c0 : c0 + live] += 1
     if not bool((writes == 1).all()):
         raise AssertionError("K11's stores do not cover the output once each")
+    return out
+
+
+def _k10_cache(xp: torch.Tensor, h: int, kc: int, m: int, elements: bool) -> torch.Tensor:
+    """One chunk of K10's digit cache as the consumer threads write it, uint8
+    [chunk / 32 steps, NDIG planes, 128 threads, 16 bytes] in K11's fragment
+    order: X stage j (16 b of the tile's 64 columns) goes to warpgroup j % 2,
+    thread (w, g, q) writing words 2 (j % 2) (column 16 w + g) and
+    2 (j % 2) + 1 (column + 8) of its fragment of step j // 2, elements
+    b = 4q .. 4q + 3 of the stage.
+    elements: xp the field tensor [m, 64 halves] (zeros past `other`); the
+    stage lands unswizzled as [16 b][64 columns] and the thread reads rows
+    4q .. 4q + 3 of its two columns and digitises them.
+    stack: xp the digit stack int8 [NDIG, 64 halves, m]; the stage lands as
+    [plane][64 columns][16 b] and the thread copies bytes 4q .. 4q + 3 of its
+    two rows of every plane."""
+    rows, xb, cs = K11_TILE["rows"], K11_TILE["xb"], min(m, K11_TILE["chunk"])
+    cache = torch.zeros((cs // 32, NDIG, 128, 16), dtype=torch.uint8)
+    t = torch.arange(128)
+    w, g, q = t // 32, t % 32 // 4, t % 4
+    b = 4 * q[:, None] + torch.arange(4)[None, :]  # [128 threads, 4 elements]
+    for j in range(cs // xb):
+        b0 = kc * cs + xb * j
+        s, half = divmod(j, 2)
+        if elements:
+            smem = xp[b0 : b0 + xb, rows * h : rows * (h + 1)]  # [b, column]
+        else:
+            smem = xp[:, rows * h : rows * (h + 1), b0 : b0 + xb]  # [plane, column, b]
+        for rr in range(2):
+            at = 8 * half + 4 * rr
+            col = (16 * w + g + 8 * rr)[:, None]
+            if elements:
+                d = k11_balanced_digits(smem[b, col])
+                for i in range(NDIG):
+                    cache[s, i, :, at : at + 4] = ((d >> (8 * i)) & 255).to(torch.uint8)
+            else:
+                cache[s, :, :, at : at + 4] = smem[:, col, b].view(torch.uint8)
+    return cache
+
+
+def digit_dft_model(src, w, epilogue: str = "recombine", elements: bool = False, grid: int = 3) -> torch.Tensor:
+    """K10's schedule in tensor code (csrc/digit_dft.cu on digit_wgmma.cuh,
+    K11's body with one table), for the inputs of ``digit_dft_plain``.
+    `grid` persistent blocks; block b takes tiles h = b, b + grid, ... of 64
+    columns from 64 h (TMA's zeros past `other`). Per tile the N-tiles p (32
+    output rows k from 32 p), per N-tile the b chunks of 256; a chunk's cache
+    (``_k10_cache``: the stage layouts of the elements and of the stack) is
+    (re)built when there is more than one chunk or p = 0. Per k32 step, A is
+    plane i of the cache read by the fragment map, B plane j of the table's
+    W stage (rows j m + 32 p .., b from the step's 32), and warpgroup wg adds
+    the product to diagonal i + j when that is one of K11_PARTS[wg]. Epilogue
+    "recombine": each warpgroup recombines its diagonals and the tile is the
+    sum of the two mod p; "sum": each adds its diagonals as int32 and the
+    tile is the two halves added, wrapping. Stored at Y[k, 64 h + c] where
+    64 h + c < other. Raises if an output element is written other than once."""
+    _check_epilogue(epilogue, ("sum", "recombine"))
+    rows, n, wb = K11_TILE["rows"], K11_TILE["n"], K11_TILE["wb"]
+    if elements:
+        m, other = src.shape
+    else:
+        other, m = src.shape[1], src.shape[2]
+    halves = -(-other // rows)
+    cs = min(m, K11_TILE["chunk"])
+    nk, spc = m // cs, cs // 32
+    wspc = min(4, spc)  # k32 steps a W stage
+    if elements:
+        xp = torch.zeros((m, halves * rows), dtype=torch.int64)
+        xp[:, :other] = src
+    else:
+        xp = torch.zeros((NDIG, halves * rows, m), dtype=torch.int8)
+        xp[:, :other] = src
+    planes = w.to(torch.float64).reshape(NDIG, m, m)  # [plane j][k][b]
+    frow, fk = k11_fragment_map()
+    out = torch.zeros((m, other), dtype=torch.int64 if epilogue == "recombine" else torch.int32)
+    writes = torch.zeros((m, other), dtype=torch.int64)
+    for b in range(grid):
+        for h in range(b, halves, grid):
+            for p in range(m // n):
+                a_steps, b_steps = [], []
+                for kc in range(nk):
+                    if nk > 1 or p == 0:
+                        cache = _k10_cache(xp, h, kc, m, elements)
+                    for s in range(spc):
+                        a = torch.zeros((NDIG, rows, 32), dtype=torch.float64)
+                        a[:, frow, fk] = cache[s].view(torch.int8).to(torch.float64)
+                        b0 = kc * cs + (s // wspc) * wb + 32 * (s % wspc)
+                        a_steps.append(a)
+                        b_steps.append(planes[:, n * p : n * (p + 1), b0 : b0 + 32])
+                # [i, j, column, k]: exact, every sum below 2^53
+                prod = torch.einsum("sirk,sjnk->ijrn", torch.stack(a_steps), torch.stack(b_steps)).to(torch.int64)
+                acc = [{d: sum(prod[i, d - i] for i in range(max(0, d - NDIG + 1), min(d, NDIG - 1) + 1))
+                        for d in part} for part in K11_PARTS]
+                if epilogue == "recombine":
+                    y = [k11_recombine(part) for part in acc]
+                    tile = FT.add(y[0], y[1])
+                else:
+                    y = [sum(part.values()).to(torch.int32) for part in acc]  # each warpgroup's int32 sum
+                    tile = (y[0].to(torch.int64) + y[1].to(torch.int64)).to(torch.int32)
+                live = min(rows, other - rows * h)
+                out[n * p : n * (p + 1), rows * h : rows * h + live] = tile[:live].T
+                writes[n * p : n * (p + 1), rows * h : rows * h + live] += 1
+    if not bool((writes == 1).all()):
+        raise AssertionError("K10's stores do not cover the output once each")
     return out
 
 
@@ -516,7 +620,9 @@ def digit_dft(src, w, epilogue: str = "recombine", elements: bool = False):
     int8 [NDIG, other, m] (what `gl_digits` writes), or with elements=True the
     field tensor [m, other], digitised inside the kernel. w: int8
     [NDIG * m, m] (`w_digits`). Returns int32 [m, other] (epilogue "sum": the
-    sum of the 15 diagonals, u32 bits) or field [m, other] ("recombine")."""
+    sum of the 15 diagonals, u32 bits) or field [m, other] ("recombine").
+    On the card an operand that is not 16-byte aligned (TMA's rule) is
+    copied to one that is."""
     _check_epilogue(epilogue, ("sum", "recombine"))
     if elements:
         _need(src, torch.int64, 2, "src")
@@ -532,6 +638,7 @@ def digit_dft(src, w, epilogue: str = "recombine", elements: bool = False):
     if not src.is_cuda:
         return digit_dft_plain(src, w, epilogue, elements)
     _check_m(m, other, "digit_dft")
+    src, w = (t.clone() if t.data_ptr() % 16 else t for t in (src, w))
     out = torch.empty((m, other), dtype=torch.int64 if epilogue == "recombine" else torch.int32,
                       device=src.device)
     with torch.cuda.device(src.device):

@@ -1,15 +1,17 @@
 """A/B of the design choices of K2 ntt_phase_axis, K3 ntt_phase_batched, K4
-ntt_phase_last, K5 ntt_small and K11 digit_dft_last.
+ntt_phase_last, K5 ntt_small, K10 digit_dft and K11 digit_dft_last.
 
 Each variant is this checkout's ops/csrc with the text edits of one design
 choice, the sources it concerns (ntt_phases.cu for K2/K3, ntt_last.cu for
-K4, ntt_small.cu for K5, digit_dft_last.cu for K11) built into a library of
-its own (nvcc, all variants at once, under sezkp_tpu_torch/_build/variants/).
-The main-path shapes of a T = 2^20 prove (the coset NTT at 2^23, the base
+K4, ntt_small.cu for K5, digit_dft.cu for K10 and digit_dft_last.cu for K11,
+whose common body is digit_wgmma.cuh) built into a library of its own (nvcc,
+all variants at once, under sezkp_tpu_torch/_build/variants/). The
+main-path shapes of a T = 2^20 prove (the coset NTT at 2^23, the base
 inverse NTT at 2^20), of a T = 2^13 prove (K5 at 2^13) and of the probes
-(K11's phase C at 2^23) are timed with CUDA events in turns: every variant,
-then every variant again in reverse order; K5, whose launch costs the host
-more than the card, and K11 replayed from a CUDA graph. Each variant's
+(K10 on one phase of 2^23 in three modes, K11's phase C at 2^23) are timed
+with CUDA events in turns: every variant, then every variant again in
+reverse order; K5, whose launch costs the host more than the card, K10 and
+K11 replayed from a CUDA graph. Each variant's
 outputs must equal the port's own kernels'. ptxas's registers and spills of
 the main-path instantiations are printed.
 
@@ -33,13 +35,18 @@ the main-path instantiations are printed.
   k5_row_twiddle   K5 with phase A's four-step twiddles s w_n^(k1 j2) built by
                    products from one row, s and s w_n^j2 (rows 0 and 1 of the
                    table), instead of read from the whole table
-  k11_chained      K11 issuing a k32 step's products diagonal by diagonal, so
-                   that consecutive products add into the same accumulators,
-                   instead of plane by plane of W (consecutive products into
-                   different diagonals)
-  k11_wait0        K11 waiting for a step's products before the next step's
-                   fragments are loaded and issued, instead of one step
+  k11_chained      K10 and K11 issuing a k32 step's products diagonal by
+                   diagonal, so that consecutive products add into the same
+                   accumulators, instead of plane by plane of W (consecutive
+                   products into different diagonals)
+  k11_wait0        K10 and K11 waiting for a step's products before the next
+                   step's fragments are loaded and issued, instead of one step
                    behind (double-buffered fragments)
+  k10_cols_boxes   K10's elements stage as four swizzled boxes [16 b][16
+                   columns] (two wavefronts a load) instead of one unswizzled
+                   box [16 b][64 columns] (four)
+  k10_cols_3d      ... as one swizzled 3-D box [16 b][4][16 columns] (rows of
+                   128 bytes, b-major; four wavefronts)
 
 Usage: python -m sezkp_tpu_torch.probes.ntt_variants [--variants base,mul] [--iters 50]
 (needs nvcc and the card).
@@ -66,7 +73,30 @@ from ._common import add_common_args, open_probe, rand_field, timeit
 
 _K3_BOUND = "__launch_bounds__(Plan<L>::NT, Plan<L>::NT == 256 ? 3 : 1)\nntt_phase_batched_kernel"
 _K2_BOUND = "__launch_bounds__(Plan<L>::NT)\nntt_phase_axis_kernel"
-_K23, _K4, _K5, _K11 = ("ntt_phases.cu",), ("ntt_last.cu",), ("ntt_small.cu",), ("digit_dft_last.cu",)
+_K23, _K4, _K5 = ("ntt_phases.cu",), ("ntt_last.cu",), ("ntt_small.cu",)
+_K10, _K11 = ("digit_dft.cu",), ("digit_dft_last.cu",)
+# K10's elements stage: the producer's load, the reader, the host's map
+_K10_LOAD = "tma_load_2d(sX + ix * kXBytes, map_x, full_x + ix, h * kRows, kc * kChunk + (2 * sc + jj) * kXB);"
+_K10_READ = """      const unsigned char* col = xs + (16 * w4 + g + 8 * rr) * 8;
+      uint64_t e[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) e[c] = *reinterpret_cast<const uint64_t*>(col + (4 * q4 + c) * kRows * 8);"""
+
+
+def _k10_read(address):
+    """The reader of element (b = 4 q4 + c, column ci = g + 8 rr of the warp's 16) at `address`."""
+    return f"""      const int ci = g + 8 * rr;
+      uint64_t e[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {{
+        const int b = 4 * q4 + c;
+        e[c] = *reinterpret_cast<const uint64_t*>({address});
+      }}"""
+
+
+_K10_MAP = """  const cuuint64_t edims[2] = {oo, mm}, estr[1] = {oo * 8};
+  const cuuint32_t ebox[2] = {kRows, kXB};"""
+_K10_ENCODE = "tensor_map(&tm_x, CU_TENSOR_MAP_DATA_TYPE_UINT64, 2, x, edims, estr, ebox, false)"
 _K11_PRODUCTS = """        for (int j = 0; j < kNdig; ++j)
 #pragma unroll
           for (int k = 0; k < NP; ++k) {
@@ -112,7 +142,7 @@ _K5_ROW = """  constexpr int E = PA::E, T = PA::T, D = E / T;
 
 # name: (the sources built, [(file, text, replacement)])
 VARIANTS = {
-    "base": (_K23 + _K4 + _K5 + _K11, []),
+    "base": (_K23 + _K4 + _K5 + _K10 + _K11, []),
     "add_sub": (_K23, [("ntt_reg.cuh", "gl::bfly(u, t, a, b);", "a = gl::add(u, t);\n  b = gl::sub(u, t);")]),
     "mul": (_K23, [("ntt_reg.cuh", "gl::mul_cc(", "gl::mul("), ("ntt_phases.cu", "gl::mul_cc(", "gl::mul(")]),
     "k3_two_blocks": (_K23, [("ntt_phases.cu", _K3_BOUND, "__launch_bounds__(Plan<L>::NT)\nntt_phase_batched_kernel")]),
@@ -135,9 +165,25 @@ VARIANTS = {
                               "  if (live_b)"),
                              ("ntt_small.cu", "  if constexpr (S::C > 1) cluster_wait();\n}",
                               "  if constexpr (S::C > 1) {\n    cluster_arrive();\n    cluster_wait();\n  }\n}")]),
-    "k11_chained": (_K11, [("digit_dft_last.cu", _K11_PRODUCTS, _K11_CHAINED)]),
-    "k11_wait0": (_K11, [("digit_dft_last.cu", "        wgmma_wait<1>();  // step s - 1 is done",
-                          "        wgmma_wait<0>();  // step s - 1 is done")]),
+    "k11_chained": (_K10 + _K11, [("digit_wgmma.cuh", _K11_PRODUCTS, _K11_CHAINED)]),
+    "k11_wait0": (_K10 + _K11, [("digit_wgmma.cuh", "        wgmma_wait<1>();  // step s - 1 is done",
+                                 "        wgmma_wait<0>();  // step s - 1 is done")]),
+    "k10_cols_boxes": (_K10, [
+        ("digit_wgmma.cuh", _K10_LOAD,
+         "for (int u = 0; u < 4; ++u) tma_load_2d(sX + ix * kXBytes + u * (kXBytes / 4), map_x, full_x + ix, "
+         "h * kRows + 16 * u, kc * kChunk + (2 * sc + jj) * kXB);"),
+        ("digit_wgmma.cuh", _K10_READ,
+         _k10_read("xs + w4 * (kXBytes / 4) + b * 128 + ((((ci >> 1) ^ (b & 7)) << 4) | ((ci & 1) << 3))")),
+        ("digit_dft.cu", "ebox[2] = {kRows, kXB};", "ebox[2] = {16, kXB};"),
+        ("digit_dft.cu", _K10_ENCODE, _K10_ENCODE.replace("false", "true"))]),
+    "k10_cols_3d": (_K10, [
+        ("digit_wgmma.cuh", _K10_LOAD,
+         "tma_load_3d(sX + ix * kXBytes, map_x, full_x + ix, 0, 4 * h, kc * kChunk + (2 * sc + jj) * kXB);"),
+        ("digit_wgmma.cuh", _K10_READ,
+         _k10_read("xs + (4 * b + w4) * 128 + ((((ci >> 1) ^ ((4 * b + w4) & 7)) << 4) | ((ci & 1) << 3))")),
+        ("digit_dft.cu", _K10_MAP, """  const cuuint64_t edims[3] = {16, oo / 16, mm}, estr[2] = {128, oo * 8};
+  const cuuint32_t ebox[3] = {16, 4, kXB};"""),
+        ("digit_dft.cu", _K10_ENCODE, _K10_ENCODE.replace(", 2, x,", ", 3, x,").replace("false", "true"))]),
 }
 
 
@@ -180,6 +226,9 @@ def _build(names):
                 func = f"ntt_{k.group(1)}_kernel<{','.join(args)}>" if main else None
                 if "digit_dft_last_kernel" in m.group(1):
                     func = "digit_dft_last_kernel"
+                d = re.search(r"digit_dft_kernelILi(\d)ELi(\d)E", m.group(1))
+                if d:
+                    func = f"digit_dft_kernel<{d.group(1)},{d.group(2)}>"
             elif func and "Used" in line:
                 print(f"{name:16s} {func}: {line.split(':', 1)[1].strip()}")
         lib = ctypes.CDLL(os.path.join(root, name, "lib.so"))
@@ -195,6 +244,8 @@ def _build(names):
             with open(os.path.join(root, name, "ntt_small.cu")) as f:
                 lib.k5_reg_log2 = int(re.search(r"constexpr int kReg = (\d+);", f.read()).group(1))
             print(f"{name:16s} ntt_small_kernel<13,*>: a cluster of {lib.sezkp_ntt_small_cluster(13)} CTAs")
+        if "digit_dft.cu" in VARIANTS[name][0]:
+            lib.sezkp_digit_dft.argtypes = [vp, vp, vp, vp, i, ll, i, vp]
         if "digit_dft_last.cu" in VARIANTS[name][0]:
             lib.sezkp_digit_dft_last.argtypes = [vp, vp, vp, i, i, i, vp]
         libs[name] = lib
@@ -252,6 +303,21 @@ def _cases(dev):
 
         cases.append((f"K5 [8192] {'inverse' if inverse else 'forward'}", "ntt_small.cu", k5, y,
                        NT.small_ntt(x, inverse), 20))
+    # K10 on one phase of 2^23 (m = 256, other = 32768): stack in, recombined and summed; elements in
+    m, other = 256, 32768
+    w, a = ND.w_digits(8, False, 1, dev), rand_field((m, other), 8, dev)
+    stack = ND.gl_digits(a)
+    for label, src, elements, epilogue in (("stack, recombined", stack, False, 1), ("stack, summed", stack, False, 0),
+                                           ("elements, recombined", a, True, 1)):
+        yk = torch.empty((m, other), dtype=torch.int64 if epilogue else torch.int32, device=dev)
+
+        def k10(lib, src=src, elements=elements, epilogue=epilogue, yk=yk):
+            return lib.sezkp_digit_dft(w.data_ptr(), None if elements else src.data_ptr(),
+                                       src.data_ptr() if elements else None, yk.data_ptr(), m, other, epilogue,
+                                       _kernels.stream_ptr())
+
+        cases.append((f"K10 {label}", "digit_dft.cu", k10, yk,
+                      ND.digit_dft(src, w, "recombine" if epilogue else "sum", elements), 1))
     # K11 on phase C of the folded forward NTT at 2^23
     l1, l2, l3 = ND._factor_logs(23)
     cols, m2, mc = 1 << l1, 1 << l2, 1 << l3
@@ -309,7 +375,7 @@ def main(argv=None) -> int:
             ms = (_replayed(fn, per_iter * args.iters) if per_iter else timeit(fn, dev, args.iters)) * 1e3
             times.setdefault((label, name), []).append(ms)
     for (label, name), ms in times.items():
-        how = "replayed" if label.startswith(("K5", "K11")) else ""
+        how = "replayed" if label.startswith(("K5", "K10", "K11")) else ""
         print(f"{label:26s} {name:16s} " + " ".join(f"{t:.4f}" for t in ms) + f" ms {how}")
     print(f"equality (every variant == the port's kernels at every shape): {ok}")
     return 0 if ok else 1

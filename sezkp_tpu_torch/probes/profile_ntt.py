@@ -5,8 +5,10 @@ transform, one DFT phase in isolation (K2), the digit decomposition alone
 (K9), and the int8 products of one digit-form phase at the same shapes, by
 the hand-written K8 and by the bare library matmul (`torch._int_mm`, cuBLASLt;
 timed here, used nowhere in the port). With --trace DIR a torch.profiler
-trace of one chained run is written there (Chrome trace format) and the
-kernels are listed by device time.
+trace of one chained run and of one launch of K10 digit_dft in each of its
+modes (a phase of the same size from K9's stack, recombined and summed, and
+from elements) is written there (Chrome trace format) and the kernels are
+listed by device time.
 
 Usage: python -m sezkp_tpu_torch.probes.profile_ntt [--k 23] [--trace DIR]
 """
@@ -80,11 +82,16 @@ def main(argv=None) -> int:
     print(f"digit decomposition alone (K9): {dt_d * 1e3:.3f} ms", flush=True)
 
     if args.trace:
+        stack, wd = ND.gl_digits(x2), ND.w_digits(m_log2, False, 1, dev)
         with device_trace(args.trace) as prof:
             chained()
+            ND.digit_dft(stack, wd, "recombine")
+            ND.digit_dft(stack, wd, "sum")
+            ND.digit_dft(x2, wd, "recombine", elements=True)
         rows = sorted(prof.key_averages(), key=lambda e: -getattr(e, "device_time_total", 0))
-        print(f"trace written to {args.trace}; kernels by device time over {CHAIN} transforms:")
-        for e in rows[:8]:
+        print(f"trace written to {args.trace}; kernels by device time over {CHAIN} transforms and one "
+              "launch of each K10 mode:")
+        for e in rows[:12]:
             us = getattr(e, "device_time_total", 0)
             if us > 0:
                 print(f"  {e.key[:72]:72s} {us / 1e3:9.3f} ms  x{e.count}")

@@ -117,7 +117,7 @@ def test_model_equals_plain_on_random_tables(m2, mc, cols, grid):
 
 
 def test_model_constants_equal_kernel_source():
-    with open(os.path.join(ROOT, "sezkp_tpu_torch", "ops", "csrc", "digit_dft_last.cu")) as f:
+    with open(os.path.join(ROOT, "sezkp_tpu_torch", "ops", "csrc", "digit_wgmma.cuh")) as f:
         src = f.read()
 
     def const(name):
