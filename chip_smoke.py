@@ -9,7 +9,7 @@ Phases (any failure ends the run with a non-zero exit code):
   env           card name and power limit, versions; builds the native host
                 library (g++) and the CUDA kernels (nvcc) from the sources in
                 this checkout; ptxas's registers, spills and shared memory of
-                K4, K5, K8, K10 and K11.
+                K4, K5 and K8-K11.
   kernels       every hand-written kernel against its plain PyTorch version
                 on the card, exact equality (tolerance 0: integer code), at
                 reduced and at main-path shapes; kernel, plain and bound times.
@@ -45,7 +45,8 @@ Phases (any failure ends the run with a non-zero exit code):
                 host-columns route, whose bytes must be the same.
   parity-small  device-resident route: the proof made on the card equals,
                 byte for byte, the proof made with device="cpu" at T = 2^13
-                (where K5 must have launched exactly once) and T = 2^15;
+                (where K5 must have launched exactly once) and T = 2^15, and
+                so do StarkV1.prove_streaming on the card and on the CPU;
                 at T = 2^16 the proves with zero memory budgets (roots-scan
                 commit, recomputed and range-derived openings, slab-wise
                 composition) equal the resident prove.
@@ -76,11 +77,15 @@ Phases (any failure ends the run with a non-zero exit code):
   cli           in a temporary directory, through sezkp_tpu_torch.cli.main with
                 no --device: simulate T = 2^20, b = 512, tau = 8 -> commit ->
                 verify-commit -> prove --backend stark -> verify; prove
+                --backend stark --stream -> verify (the two proves in a child
+                process each: stages, K1-K4 launches, peak device memory and
+                peak host RSS, sampled); prove
                 --backend fold -> verify; prove --backend fold --stream
                 --fold-mode minram -> verify; a proof file with one flipped
                 byte is rejected; the proof bytes in the files equal those of
                 the in-process StarkV1.prove / FoldBackend.prove on the same
-                blocks and root, and so do the launch counts of K1-K7.
+                blocks and root, and so do the launch counts of K1-K7; the
+                streamed STARK proof has the resident proof's sha256.
   prove-large   only when asked for (--phases env,prove-large): T = 2^22
                 (LDE 2^25, the largest size the port proves so far),
                 device-resident route: two proves (byte-identical) + verify,
@@ -112,6 +117,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 
@@ -233,8 +239,9 @@ def phase_env(state) -> None:
     if not b3.HAVE_NATIVE:
         fail("native host library (g++) did not build or load")
     t1 = time.time()
-    # ptxas's registers, spills and shared memory of K4, K5, K8, K10 and K11, built beside the library
-    ptxas = _ptxas_start(("ntt_last.cu", "ntt_small.cu", "i8_gemm.cu", "digit_dft.cu", "digit_dft_last.cu"))
+    # ptxas's registers, spills and shared memory of K4, K5, K8-K11, built beside the library
+    ptxas = _ptxas_start(("ntt_last.cu", "ntt_small.cu", "i8_gemm.cu", "gl_digits.cu", "digit_dft.cu",
+                          "digit_dft_last.cu"))
     _kernels.lib()
     log(f"[env] set-up: native host lib {t1 - t0:.1f} s, CUDA kernels {_kernels.build_seconds:.1f} s")
     for func, usage in sorted(_ptxas_usage(ptxas)[1].items()):
@@ -824,13 +831,22 @@ def _kernels_digit_form(kern, gen, dev) -> None:
         + json.dumps({k: round(v, 3) for k, v in big["at_1024x1024x2^20"].items()
                       if k.startswith(("ms", "and127_ms", "library_", "bound_share", "tops")) and isinstance(v, float)}))
 
-    # ---- K9 gl_digits
-    for m, other in ((32, 32), (64, 160), (1024, 96), (256, 32768)):
+    # ---- K9 gl_digits: k-major tiles of 32, 64, 128 and 256 rows (m = 96 and 288: 32)
+    for m, other in ((32, 32), (64, 160), (96, 64), (128, 32), (288, 32), (1024, 96), (256, 32768)):
         a = edge_field((m, other))
         planes = ND.digits_plain(a)
         hold("gl_digits", ND.gl_digits(a), ND.stack_kmajor(planes), f"[{m}, {other}] k-major")
         for tile in (32, other):
             hold("gl_digits", ND.gl_digits(a, tile), ND.stack_tiled(planes, tile), f"[{m}, {other}] tile {tile}")
+    # every element MAX_BAL + 1 (the digit -128 in planes 4-7), and an x 8 bytes
+    # off a 16-byte boundary (the wrapper copies it to an aligned one)
+    xe = torch.full((64, 32), FT._i64(ND.MAX_BAL + 1), dtype=torch.int64, device=dev)
+    hold("gl_digits", ND.gl_digits(xe), ND.stack_kmajor(ND.digits_plain(xe)), "all MAX_BAL + 1, k-major")
+    xe = edge_field((256 * 64 + 1,))[1:].view(256, 64)
+    if xe.data_ptr() % 16 != 8:
+        fail("the misaligned K9 input is not 8 bytes off a 16-byte boundary")
+    hold("gl_digits", ND.gl_digits(xe), ND.stack_kmajor(ND.digits_plain(xe)), "x 8 bytes off a 16-byte boundary")
+    del xe
     m, other = 256, 32768
     n = m * other
     bnd, by = _bound(16 * n, 0)
@@ -838,11 +854,16 @@ def _kernels_digit_form(kern, gen, dev) -> None:
         name="gl_digits", route="cuda", source="sezkp_tpu_torch/ops/csrc/gl_digits.cu",
         replaces="scripts/exp_ntt_breakdown.py:129",
         shape=f"int64 [{m}, {other}] -> int8 [8, {other}, {m}] (k-major)",
-        ms=time_cuda(lambda: ND.gl_digits(a), 20), tiled_512_ms=time_cuda(lambda: ND.gl_digits(a, 512), 20),
+        ms=time_cuda(lambda: ND.gl_digits(a), 20), graph_ms=time_cuda_graph(lambda: ND.gl_digits(a), 20),
+        tiled_512_ms=time_cuda(lambda: ND.gl_digits(a, 512), 20),
+        tiled_512_graph_ms=time_cuda_graph(lambda: ND.gl_digits(a, 512), 20),
         plain_ms=time_cuda(lambda: ND.stack_kmajor(ND.digits_plain(a)), 2),
         bound_ms=bnd, bound_by=by, library_ms=None,
     )
-    log(f"[kernels] K9 gl_digits == plain in both layouts: {kern['gl_digits']['ms']:.3f} ms at [256, 32768]")
+    kern["gl_digits"]["bound_share"] = bnd / kern["gl_digits"]["ms"]
+    log("[kernels] K9 gl_digits == plain in both layouts (k-major tiles of 32 to 256 rows, all MAX_BAL + 1, "
+        "a misaligned x): at [256, 32768] " + json.dumps({k: round(kern["gl_digits"][k], 4) for k in (
+            "ms", "graph_ms", "tiled_512_ms", "tiled_512_graph_ms", "bound_ms")}))
 
     # ---- K10 digit_dft: against the plain version in every (source, epilogue), and elements-in against K2
     for m_log2, other, inverse in ((5, 32, False), (6, 48, True), (7, 128, False), (9, 64, True), (10, 32, False),
@@ -1119,9 +1140,9 @@ def phase_sass(state) -> None:
                    + json.dumps({r: pair('mul_pow2_' + r) for r in ('lo', 'mid', 'hi')})
                    + f"; GL_BFLY_OPS = {pair('bfly')}; GL_MULCC_OPS = {pair('mul_cc')}")
 
-    # registers, spills and shared memory of K2-K5's instantiations and of K8, K10, K11 (ptxas)
+    # registers, spills and shared memory of K2-K5's instantiations and of K8-K11 (ptxas)
     ptxas, usage = _ptxas_usage(_ptxas_start(("ntt_phases.cu", "ntt_last.cu", "ntt_small.cu", "i8_gemm.cu",
-                                              "digit_dft.cu", "digit_dft_last.cu")))
+                                              "gl_digits.cu", "digit_dft.cu", "digit_dft_last.cu")))
     with open("chiprun_out/sass/ptxas_ntt_phases.txt", "w") as f:
         f.write(ptxas)
     summary += [f"ptxas {f}: {' | '.join(u)}" for f, u in sorted(usage.items())]
@@ -1337,6 +1358,16 @@ def phase_parity_small(state) -> None:
         StarkV1.verify(on_card, blocks, man.root)
         log(f"[parity-small] T = 2^{t_log2}: card and CPU proofs byte-identical "
             f"(sha256 {_sha(on_card)}); launches {json.dumps(launches)}")
+        # the streaming prove (host columns and composition, host-hashed chunks; LDE and FRI on the card)
+        stages = {}
+        streamed = StarkV1.prove_streaming(blocks, man.root, timings=stages)
+        streamed_cpu = StarkV1.prove_streaming(blocks, man.root, device="cpu")
+        if streamed.proof_bytes != on_card.proof_bytes or streamed_cpu.proof_bytes != on_card.proof_bytes:
+            fail(f"T = 2^{t_log2}: the streaming proves (card, CPU) differ from the resident prove")
+        if streamed.meta.get("mode") != "streaming" or "host_compose" not in stages:
+            fail(f"T = 2^{t_log2}: prove_streaming did not take the streaming host-columns route")
+        log(f"[parity-small] T = 2^{t_log2}: prove_streaming on the card and on the CPU == StarkV1.prove; "
+            f"stages (s): {_stages(stages)}")
         if t_log2 == 13:
             state["launches_small"] = launches
             if launches["ntt_small"] != 1:
@@ -1568,6 +1599,71 @@ def phase_probes(state) -> None:
     state["launches_probes"] = launches
 
 
+# sha256 of the STARK proof at T = 2^20, b = 512, tau = 8 (every route, both
+# packages): its first and last eight hex digits
+STARK_SHA = ("e83c5efe", "53d0a8db")
+
+
+def _cli_child(argv) -> dict:
+    """Run one command line of the port's CLI in a child process
+    (`chip_smoke.py --cli-child`) and return what it reports: the wall time
+    of cli.main, the stages of its STARK prove, the kernel launch counts over
+    it, the peak device memory and the child's own peak RSS (sampled)."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--cli-child", json.dumps(argv)],
+                       capture_output=True, text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if r.returncode != 0:
+        fail(f"cli child {' '.join(argv[:4])} exited with {r.returncode}\n{r.stdout[-2000:]}{r.stderr[-4000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def _rss_kib() -> int:
+    """This process's resident set size now, in KiB (/proc/self/statm)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") // 1024
+
+
+def _sample_peak_rss(peak: list, stop) -> None:
+    """Keep the largest `_rss_kib()` in peak[0], sampled every 10 ms until
+    `stop` is set. A sampled peak, because the two direct readings fail:
+    getrusage's ru_maxrss carries the parent's peak into a child across fork
+    and exec, and the card's machine has no VmHWM in /proc/self/status."""
+    while not stop.wait(0.01):
+        peak[0] = max(peak[0], _rss_kib())
+
+
+def cli_child(argv) -> None:
+    """The child of `_cli_child`: cli.main(argv) with every kernel's launch
+    count set to 0 before, the STARK prove's stages collected, and one JSON
+    line of the results last."""
+    from sezkp_tpu_torch import cli
+    from sezkp_tpu_torch.stark import backends
+
+    stages = {}
+    prove_v1 = backends.prove_v1
+    backends.prove_v1 = lambda *a, **o: prove_v1(*a, timings=stages, **o)
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    peak, stop = [_rss_kib()], threading.Event()
+    sampler = threading.Thread(target=_sample_peak_rss, args=(peak, stop), daemon=True)
+    sampler.start()
+    t0 = time.time()
+    try:
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        backends.prove_v1 = prove_v1
+        stop.set()
+        sampler.join()
+    wall = time.time() - t0
+    if rc not in (0, None):
+        fail(f"cli {' '.join(argv[:4])} returned {rc}")
+    print(json.dumps({"wall_s": wall, "stages": stages, "launches": {k: w.launches for k, w in wrappers.items()},
+                      "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                      "peak_rss_kib": max(peak[0], _rss_kib())}), flush=True)
+
+
 def phase_cli(state) -> None:
     """The command line end to end, as `python -m sezkp_tpu_torch` runs it (no
     --device: the card), against the in-process backends on the same input."""
@@ -1619,17 +1715,36 @@ def phase_cli(state) -> None:
         j = lambda name: os.path.join(tmp, name)
         blocks_p, man_p = j("blocks.cbor"), j("manifest.cbor")
         common = ["--blocks", blocks_p, "--manifest", man_p]
-        # after the STARK prove and verify have checked the blocks file against
-        # the manifest, the later commands skip that pass over the file
+        # after the two STARK proves and the first verify have checked the
+        # blocks file against the manifest, the later commands skip that pass
         assumed = [*common, "--assume-committed"]
         run(["simulate", "--t", str(1 << 20), "--b", "512", "--tau", "8", "--out-blocks", blocks_p])
         run(["commit", "--blocks", blocks_p, "--out", man_p])
         run(["verify-commit", "--blocks", blocks_p, "--manifest", man_p])
 
-        stark_launches = run(["prove", "--backend", "stark", *common, "--out", j("stark.cbor")])
+        # the resident and the streamed STARK prove on the same command line
+        # but --stream, each in a child process of its own: its peak host RSS
+        def stark_child(flags, out):
+            t0 = time.time()
+            r = _cli_child(["prove", "--backend", "stark", *flags, *common, "--out", j(out)])
+            log(f"[cli] prove --backend stark {' '.join(flags)} (child): {time.time() - t0:.2f} s, cli.main "
+                f"{r['wall_s']:.2f} s; stages (s): {_stages(r['stages'])}; launches {json.dumps(r['launches'])}; "
+                f"peak device memory {r['peak_device_bytes']} bytes; peak host RSS {r['peak_rss_kib']} KiB")
+            for k in ("blake3_compress", "ntt_phase_axis", "ntt_phase_batched", "ntt_phase_last"):
+                if r["launches"][k] <= 0:
+                    fail(f"kernel {k} was never launched by prove --backend stark {' '.join(flags)}")
+            return r
+
+        stark_launches = stark_child([], "stark.cbor")["launches"]
         run(["verify", "--backend", "stark", *common, "--proof", j("stark.cbor")])
         flipped(j("stark.cbor"), j("stark_bad.cbor"))
         rejected(["verify", "--backend", "stark", *assumed, "--proof", j("stark_bad.cbor")], "a flipped STARK proof file")
+        if "host_compose" not in stark_child(["--stream"], "stark_stream.cbor")["stages"]:
+            fail("prove --backend stark --stream did not take the streaming host-columns route")
+        run(["verify", "--backend", "stark", *assumed, "--proof", j("stark_stream.cbor")])
+        flipped(j("stark_stream.cbor"), j("stark_stream_bad.cbor"))
+        rejected(["verify", "--backend", "stark", *assumed, "--proof", j("stark_stream_bad.cbor")],
+                 "a flipped streamed STARK proof file")
 
         fold_launches = run(["prove", "--backend", "fold", *assumed, "--out", j("fold.cbor")])
         run(["verify", "--backend", "fold", *assumed, "--proof", j("fold.cbor")])
@@ -1648,7 +1763,16 @@ def phase_cli(state) -> None:
         blocks = core_io.read_block_summaries_auto(blocks_p)
         root = read_manifest_auto(man_p).root
         stark_file = core_io.read_proof_auto(j("stark.cbor"))
+        stream_file = core_io.read_proof_auto(j("stark_stream.cbor"))
         fold_file = core_io.read_proof_auto(j("fold.cbor"))
+    stream_sha = hashlib.sha256(stream_file.proof_bytes).hexdigest()
+    if stream_file.proof_bytes != stark_file.proof_bytes:
+        fail("the streamed STARK proof file differs from the resident proof file")
+    if not (stream_sha.startswith(STARK_SHA[0]) and stream_sha.endswith(STARK_SHA[1])):
+        fail(f"the streamed STARK proof's sha256 {stream_sha} is not the resident proof's {'...'.join(STARK_SHA)}")
+    if stream_file.meta.get("mode") != "streaming":
+        fail(f"the streamed STARK artifact's meta {stream_file.meta} does not say mode streaming")
+    log(f"[cli] streamed STARK proof file == resident proof file, sha256 {stream_sha}; meta {stream_file.meta}")
     # the CLI set the fold mode for its last prove; the in-process prove is the balanced one
     from sezkp_tpu_torch.utils.config import ENV_KEYS
 
@@ -1697,6 +1821,9 @@ def main() -> None:
                     help="comma-separated subset of: " + ", ".join(ALL_PHASES + EXTRA_PHASES))
     ap.add_argument("--sass-csrc", default=None,
                     help="sass phase: the ops/csrc directory of another checkout to compare with")
+    ap.add_argument("--cli-child", default=None, metavar="JSON",
+                    help="run one CLI command line (a JSON list) and print its RSS, stages and launches "
+                         "(the cli phase's child processes)")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
@@ -1708,6 +1835,9 @@ def main() -> None:
               file=sys.stderr)
         sys.exit(2)
 
+    if args.cli_child is not None:
+        cli_child(json.loads(args.cli_child))
+        return
     state = {"sass_csrc": args.sass_csrc}
     t_start = time.time()
     run = {"env": phase_env, "kernels": phase_kernels, "prove": phase_prove,

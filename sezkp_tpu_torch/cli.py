@@ -109,12 +109,6 @@ def cmd_prove(args) -> int:
     from .utils.config import ENV_KEYS
     from .utils.tracing import span
 
-    if args.backend == "stark" and args.stream:
-        raise NotImplementedError(
-            "prove --backend stark --stream: the streaming STARK prove "
-            "(prove_streaming / StreamingColumnEngine) is not ported yet, see "
-            "ROADMAP.md queue A2; drop --stream for the resident prover"
-        )
     # stark and fold run on the card unless --device says otherwise, and raise
     # where there is none; stark-v0 is host code and takes no device
     options = {}
@@ -144,7 +138,10 @@ def cmd_prove(args) -> int:
             print(f"Proved (streaming/fold) -> artifact={args.out} stream={stream_path}")
         else:
             blocks = core_io.read_block_summaries_auto(args.blocks)
-            artifact = sp.prove(blocks, man.root, **options)
+            if args.backend == "stark" and args.stream:
+                artifact = backend.prove_streaming(blocks, man.root, **options)
+            else:
+                artifact = sp.prove(blocks, man.root, **options)
 
     core_io.write_proof_auto(args.out, artifact)
     print(

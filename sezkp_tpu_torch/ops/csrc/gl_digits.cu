@@ -12,11 +12,19 @@
 //  - k-major, int8 [8, other, m]: digit plane d, then column c, then the m
 //    values down that column contiguous. This is what K10 (digit_dft.cu)
 //    loads: the tensor-core instruction wants the contraction index
-//    contiguous for both operands. A block takes a 32 x 32 tile of x, reads
-//    it along the columns (coalesced), digitises four rows per thread, packs
-//    the four digit bytes of each plane into one word by a 4 x 4 byte
-//    transpose in registers, and turns the tile in shared memory so that the
-//    stores run along m, 32 bytes per (plane, column).
+//    contiguous for both operands. A block owns whole output runs: a tile
+//    of kCols = 16 columns by R rows (R = 256, or the largest of 128, 64, 32
+//    that divides m). Its input is R rows of 128 bytes, whole lines, read as
+//    16 bytes (two columns) a thread, four rows a thread, every load of the
+//    thread issued before the first is used (32 KB in flight a block). Each
+//    element becomes its 8 digit bytes; a 4 x 4 byte transpose in registers
+//    packs each plane's bytes of four consecutive rows into one word, which
+//    goes to shared memory as [plane][column][R / 4 words], the word index
+//    xor-ed with 4 (column / 2) so that a warp's 32 writes hit 32 banks.
+//    Then each (plane, column) run of R bytes leaves in 16-byte stores,
+//    consecutive threads on consecutive addresses: 8 contiguous runs of
+//    16 R bytes when R = m. Every output line is written whole by one block,
+//    not pieced together by blocks far apart in time.
 //  - tiled, int8 [m, 8 * other]: for every `tile` columns the 8 digit planes
 //    [m, tile] side by side, the layout the Pallas kernel writes. One thread
 //    per element, loads and stores both along the columns.
@@ -24,42 +32,94 @@
 #include <stdint.h>
 
 #include "i8_mma.cuh"
+#include "smem_opt_in.cuh"
 
 namespace {
 
-constexpr int kTile = 32;
+constexpr int kCols = 16;     // columns of a k-major tile (a multiple of 2)
 constexpr int kThreads = 256;
+constexpr int kMaxRows = 256;  // rows of a k-major tile, at most
 
+// shared-memory word of plane i, column c, row quad q ([8][kCols][kQ] words,
+// q xor-ed with 4 (c / 2): a warp's 32 writes in 32 banks)
+template <int kQ>
+__device__ __forceinline__ int smem_word(int i, int c, int q) {
+  return (i * kCols + c) * kQ + (q ^ ((4 * (c >> 1)) & (kQ - 4)));
+}
+
+template <int R>
 __global__ void __launch_bounds__(kThreads)
-gl_digits_kmajor_kernel(const uint64_t* __restrict__ x, int8_t* __restrict__ out, int m,
+gl_digits_kmajor_kernel(const uint64_t* __restrict__ x, int8_t* __restrict__ out, long long m,
                         long long other) {
-  // [plane][column][8 words of 4 rows], 9 words per column against bank conflicts
-  __shared__ uint32_t s[8][kTile][9];
+  extern __shared__ uint4 smem_v[];
+  uint32_t* s = reinterpret_cast<uint32_t*>(smem_v);  // [8][kCols][kQ]
+  constexpr int kQ = R / 4;             // words of a (plane, column) run
+  constexpr int kPairs = kCols / 2;     // 16-byte loads across the tile's row
+  constexpr int kItems = kQ * kPairs;   // (row quad, column pair) items
+  constexpr int kPer = (kItems + kThreads - 1) / kThreads;
   const int tid = threadIdx.x;
-  const long long c0 = (long long)blockIdx.x * kTile;
-  const int j0 = blockIdx.y * kTile;
-  {
-    const int c = tid % kTile, jq = tid / kTile;
-    uint32_t lo[4], hi[4];
+  const long long c0 = (long long)blockIdx.x * kCols;
+  const long long j0 = (long long)blockIdx.y * R;
+
+  ulonglong2 v[kPer][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const uint64_t d = i8mma::balanced_digits(x[(long long)(j0 + 4 * jq + r) * other + c0 + c]);
-      lo[r] = (uint32_t)d;
-      hi[r] = (uint32_t)(d >> 32);
+  for (int k = 0; k < kPer; ++k) {
+    const int it = tid + k * kThreads;
+    if (kItems % kThreads == 0 || it < kItems) {
+      const uint64_t* src = x + (j0 + 4 * (it / kPairs)) * other + c0 + 2 * (it % kPairs);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) v[k][r] = __ldg(reinterpret_cast<const ulonglong2*>(src + r * other));
     }
-    i8mma::transpose4x4(lo);
-    i8mma::transpose4x4(hi);
+  }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      s[i][c][jq] = lo[i];
-      s[4 + i][c][jq] = hi[i];
+  for (int k = 0; k < kPer; ++k) {
+    const int it = tid + k * kThreads;
+    if (kItems % kThreads == 0 || it < kItems) {
+      const int q = it / kPairs, cp = it % kPairs;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        uint32_t lo[4], hi[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const uint64_t d = i8mma::balanced_digits(e ? v[k][r].y : v[k][r].x);
+          lo[r] = (uint32_t)d;
+          hi[r] = (uint32_t)(d >> 32);
+        }
+        i8mma::transpose4x4(lo);
+        i8mma::transpose4x4(hi);
+        const int c = 2 * cp + e;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[smem_word<kQ>(i, c, q)] = lo[i];
+          s[smem_word<kQ>(4 + i, c, q)] = hi[i];
+        }
+      }
     }
   }
   __syncthreads();
-  const int c = tid / 8, q = tid % 8;
+  constexpr int kVec = R / 16;  // 16-byte vectors of a run
+  constexpr int kStores = 8 * kCols * kVec;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-    *reinterpret_cast<uint32_t*>(out + ((long long)i * other + c0 + c) * m + j0 + 4 * q) = s[i][c][q];
+  for (int k = 0; k < (kStores + kThreads - 1) / kThreads; ++k) {
+    const int idx = tid + k * kThreads;
+    if (kStores % kThreads == 0 || idx < kStores) {
+      const int pc = idx / kVec, g = idx % kVec;  // pc = plane * kCols + column
+      const int i = pc / kCols, c = pc % kCols;
+      const uint4 val = *reinterpret_cast<const uint4*>(s + smem_word<kQ>(i, c, 4 * g));
+      *reinterpret_cast<uint4*>(out + (i * other + c0 + c) * m + j0 + 16 * g) = val;
+    }
+  }
+}
+
+template <int R>
+int launch_kmajor(const void* x, void* out, long long m, long long other, cudaStream_t st) {
+  static unsigned long long opted = 0;
+  constexpr size_t smem = 8 * kCols * R;
+  const cudaError_t err = smem_opt_in(gl_digits_kmajor_kernel<R>, smem, opted);
+  if (err) return (int)err;
+  const dim3 grid((unsigned)(other / kCols), (unsigned)(m / R));
+  gl_digits_kmajor_kernel<R><<<grid, kThreads, smem, st>>>((const uint64_t*)x, (int8_t*)out, m, other);
+  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -77,25 +137,26 @@ gl_digits_tiled_kernel(const uint64_t* __restrict__ x, int8_t* __restrict__ out,
 }  // namespace
 
 // x u64 [m, other]. tile == 0: out int8 [8, other, m] (k-major; m and other
-// multiples of 32, m <= 2^21). tile > 0: out int8 [m, 8 * other], tiled (other
-// a multiple of tile). Returns the launch's cudaError_t, or
-// cudaErrorInvalidValue for shapes it does not take.
+// multiples of 32, m <= 2^21, x 16-byte aligned). tile > 0: out int8
+// [m, 8 * other], tiled (other a multiple of tile). Returns the launch's
+// cudaError_t, or cudaErrorInvalidValue for shapes it does not take.
 extern "C" int sezkp_gl_digits(const void* x, void* out, long long m, long long other,
                                long long tile, void* stream) {
   if (m < 1 || other < 1 || tile < 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   if (tile == 0) {
-    if (m % kTile || other % kTile || m / kTile > 65535 || other / kTile > 0x7FFFFFFFLL)
+    if (m % 32 || other % 32 || m > (1 << 21) || other / kCols > 0x7FFFFFFFLL || ((uintptr_t)x & 15))
       return (int)cudaErrorInvalidValue;
-    dim3 grid((unsigned)(other / kTile), (unsigned)(m / kTile));
-    gl_digits_kmajor_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint64_t*)x, (int8_t*)out, (int)m, other);
-  } else {
-    if (other % tile) return (int)cudaErrorInvalidValue;
-    const long long total = m * other;
-    const long long blocks = (total + kThreads - 1) / kThreads;
-    if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-    gl_digits_tiled_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const uint64_t*)x, (int8_t*)out, total, other, tile);
+    if (m % kMaxRows == 0) return launch_kmajor<kMaxRows>(x, out, m, other, st);
+    if (m % 128 == 0) return launch_kmajor<128>(x, out, m, other, st);
+    if (m % 64 == 0) return launch_kmajor<64>(x, out, m, other, st);
+    return launch_kmajor<32>(x, out, m, other, st);
   }
+  if (other % tile) return (int)cudaErrorInvalidValue;
+  const long long total = m * other;
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  gl_digits_tiled_kernel<<<(unsigned)blocks, kThreads, 0, st>>>((const uint64_t*)x, (int8_t*)out, total, other,
+                                                               tile);
   return (int)cudaGetLastError();
 }

@@ -269,40 +269,14 @@ i8_gemm_kernel(__grid_constant__ const CUtensorMap tm_w, __grid_constant__ const
   }
 }
 
-// ---- tensor maps, encoded on the host by cuTensorMapEncodeTiled, looked up
-// through the runtime's entry-point query (no link against libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // a row-major [rows, cols] matrix of `elem`-byte elements, boxes of
 // box_rows x box_cols, with the 128-byte swizzle or none, zeros outside
 bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base, uint64_t rows,
               uint64_t cols, uint32_t box_cols, uint32_t box_rows, bool swizzle) {
-  const EncodeTiled enc = encode_tiled();
-  if (!enc) return false;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {cols * elem};
   const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  return enc(map, type, 2, const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tensor_map(map, type, 2, base, dims, strides, box, swizzle);
 }
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }

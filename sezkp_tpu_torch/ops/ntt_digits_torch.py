@@ -20,7 +20,8 @@ Kernels (CUDA C++, ops/csrc/), each with its plain version here:
 - **K9 ``gl_digits``** (gl_digits.cu): elements -> digits, as the k-major
   stack int8 ``[NDIG, other, m]`` that K10 loads, or with ``tile`` as the
   tiled stack int8 ``[m, NDIG * other]`` of the Pallas probe. Plain:
-  ``digits_plain`` and the two ``stack_*`` layouts.
+  ``digits_plain`` and the two ``stack_*`` layouts; the k-major tile
+  schedule in tensor code: ``gl_digits_model``.
 - **K10 ``digit_dft``** (digit_dft.cu): one axis-0 phase from a digit stack
   or from elements, ending in the sum of the diagonals (int32) or the
   recombination (field elements); K11's kernel body with one table. Plain:
@@ -547,6 +548,79 @@ def digit_dft_model(src, w, epilogue: str = "recombine", elements: bool = False,
     return out
 
 
+# K9's k-major tile (csrc/gl_digits.cu): columns, and rows at most
+K9_TILE = dict(cols=16, max_rows=256)
+
+
+def k9_rows(m: int) -> int:
+    """Rows of K9's k-major tile for m rows: 256, else the largest of 128,
+    64 and 32 that divides m."""
+    for r in (K9_TILE["max_rows"], 128, 64, 32):
+        if m % r == 0:
+            return r
+    raise ValueError("gl_digits (k-major) on the card takes m and other that are multiples of 32")
+
+
+def gl_digits_model(x: torch.Tensor) -> torch.Tensor:
+    """K9's k-major schedule in tensor code (csrc/gl_digits.cu), for x field
+    [m, other], m and other multiples of 32. Block (by, bx) owns rows R by ..
+    (R = ``k9_rows(m)``) and columns 16 bx ..; its item (row quad q, column
+    pair cp) is rows 4q .. 4q + 3 of columns 2cp, 2cp + 1. Each element's
+    balanced digits, then the 4 x 4 byte transpose: plane i's word of the
+    quad holds row 4q + r in byte r, and lands in shared memory
+    [plane][column][R / 4 words] at word q ^ (4 (column // 2) & (R / 4 - 4)).
+    Store vector (plane * 16 + column) * R / 16 + g reads the 16 bytes at word
+    4g of the run (the same xor) and writes them at byte (plane * other +
+    16 bx + column) * m + R by + 16 g. Returns the int8 [NDIG, other, m]
+    stack; raises if a shared word or an output byte is written other than
+    once."""
+    m, other = x.shape
+    cols = K9_TILE["cols"]
+    if other % 32:
+        raise ValueError("gl_digits (k-major) on the card takes m and other that are multiples of 32")
+    R = k9_rows(m)
+    kq = R // 4
+    nby, nbx = m // R, other // cols
+    by = torch.arange(nby)[:, None, None, None]
+    bx = torch.arange(nbx)[None, :, None, None]
+    q = torch.arange(kq)[None, None, :, None]
+    cp = torch.arange(cols // 2)[None, None, None, :]
+    shape = (nby, nbx, kq, cols // 2)
+    d = k11_balanced_digits(x)
+    smem = torch.zeros((nby, nbx, NDIG * cols * kq), dtype=torch.int64)
+    swrites = torch.zeros_like(smem)
+    for e in range(2):
+        c = 2 * cp + e
+        w = q ^ ((4 * (c >> 1)) & (kq - 4))
+        quad = [d[R * by + 4 * q + r, cols * bx + c] for r in range(4)]
+        for i in range(NDIG):
+            word = sum(((quad[r] >> (8 * i)) & 255) << (8 * r) for r in range(4))
+            at = ((i * cols + c) * kq + w).expand(shape)
+            smem[by.expand(shape), bx.expand(shape), at] = word.expand(shape)
+            swrites.index_put_((by.expand(shape), bx.expand(shape), at), torch.ones(shape, dtype=torch.int64),
+                               accumulate=True)
+    if not bool((swrites == 1).all()):
+        raise AssertionError("K9's shared-memory words are not written once each")
+    kvec = R // 16
+    idx = torch.arange(NDIG * cols * kvec)[None, None, :]
+    pc, g = idx // kvec, idx % kvec
+    c = pc % cols
+    word0 = pc * kq + ((4 * g) ^ ((4 * (c >> 1)) & (kq - 4)))
+    base = ((pc // cols) * other + cols * bx[..., 0] + c) * m + R * by[..., 0] + 16 * g
+    out = torch.zeros(NDIG * other * m, dtype=torch.int64)
+    writes = torch.zeros_like(out)
+    vshape = (nby, nbx, idx.shape[-1])
+    for k in range(4):
+        vals = smem[by[..., 0].expand(vshape), bx[..., 0].expand(vshape), (word0 + k).expand(vshape)]
+        for b in range(4):
+            at = (base + 4 * k + b).expand(vshape).reshape(-1)
+            out[at] = ((vals >> (8 * b)) & 255).reshape(-1)
+            writes.index_put_((at,), torch.ones_like(at), accumulate=True)
+    if not bool((writes == 1).all()):
+        raise AssertionError("K9's stores do not cover the output once each")
+    return out.to(torch.uint8).view(torch.int8).reshape(NDIG, other, m)
+
+
 # ------------------------------ kernel wrappers ------------------------------
 
 
@@ -596,6 +670,8 @@ def gl_digits(x: torch.Tensor, tile: "int | None" = None) -> torch.Tensor:
     if tile is None:
         if m % 32 or other % 32:
             raise ValueError("gl_digits (k-major) on the card takes m and other that are multiples of 32")
+        if x.data_ptr() % 16:  # the kernel reads 16 bytes a load
+            x = x.clone()
         out = torch.empty((NDIG, other, m), dtype=torch.int8, device=x.device)
     else:
         out = torch.empty((m, NDIG * other), dtype=torch.int8, device=x.device)

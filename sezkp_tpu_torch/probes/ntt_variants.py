@@ -1,17 +1,18 @@
 """A/B of the design choices of K2 ntt_phase_axis, K3 ntt_phase_batched, K4
-ntt_phase_last, K5 ntt_small, K10 digit_dft and K11 digit_dft_last.
+ntt_phase_last, K5 ntt_small, K9 gl_digits, K10 digit_dft and K11
+digit_dft_last.
 
 Each variant is this checkout's ops/csrc with the text edits of one design
 choice, the sources it concerns (ntt_phases.cu for K2/K3, ntt_last.cu for
-K4, ntt_small.cu for K5, digit_dft.cu for K10 and digit_dft_last.cu for K11,
-whose common body is digit_wgmma.cuh) built into a library of its own (nvcc,
+K4, ntt_small.cu for K5, gl_digits.cu for K9, digit_dft.cu for K10 and
+digit_dft_last.cu for K11, whose common body is digit_wgmma.cuh) built into a library of its own (nvcc,
 all variants at once, under sezkp_tpu_torch/_build/variants/). The
 main-path shapes of a T = 2^20 prove (the coset NTT at 2^23, the base
 inverse NTT at 2^20), of a T = 2^13 prove (K5 at 2^13) and of the probes
-(K10 on one phase of 2^23 in three modes, K11's phase C at 2^23) are timed
-with CUDA events in turns: every variant, then every variant again in
-reverse order; K5, whose launch costs the host more than the card, K10 and
-K11 replayed from a CUDA graph. Each variant's
+(K9's k-major stack and K10 on one phase of 2^23, K10 in three modes,
+K11's phase C at 2^23) are timed with CUDA events in turns: every variant,
+then every variant again in reverse order; K5, whose launch costs the host
+more than the card, K9, K10 and K11 replayed from a CUDA graph. Each variant's
 outputs must equal the port's own kernels'. ptxas's registers and spills of
 the main-path instantiations are printed.
 
@@ -47,6 +48,16 @@ the main-path instantiations are printed.
                    box [16 b][64 columns] (four)
   k10_cols_3d      ... as one swizzled 3-D box [16 b][4][16 columns] (rows of
                    128 bytes, b-major; four wavefronts)
+  k9_rows128       K9 (k-major) with tiles of at most 128 rows instead of 256
+  k9_cols32        K9 with tiles of 32 columns instead of 16 (64 KB of shared
+                   memory a block)
+  k9_threads128    K9 with 128 threads a block (four items of 4 rows x 2
+                   columns a thread at 256 rows) instead of 256 (two)
+  k9_threads512    ... with 512 (one)
+  k9_tma           K9 storing each 128-row half of its tile with one TMA
+                   store of a 3-D box [8 planes][16 columns][128 bytes] (the
+                   128-byte swizzle in shared memory) instead of 16-byte
+                   vector stores
 
 Usage: python -m sezkp_tpu_torch.probes.ntt_variants [--variants base,mul] [--iters 50]
 (needs nvcc and the card).
@@ -74,7 +85,7 @@ from ._common import add_common_args, open_probe, rand_field, timeit
 _K3_BOUND = "__launch_bounds__(Plan<L>::NT, Plan<L>::NT == 256 ? 3 : 1)\nntt_phase_batched_kernel"
 _K2_BOUND = "__launch_bounds__(Plan<L>::NT)\nntt_phase_axis_kernel"
 _K23, _K4, _K5 = ("ntt_phases.cu",), ("ntt_last.cu",), ("ntt_small.cu",)
-_K10, _K11 = ("digit_dft.cu",), ("digit_dft_last.cu",)
+_K9, _K10, _K11 = ("gl_digits.cu",), ("digit_dft.cu",), ("digit_dft_last.cu",)
 # K10's elements stage: the producer's load, the reader, the host's map
 _K10_LOAD = "tma_load_2d(sX + ix * kXBytes, map_x, full_x + ix, h * kRows, kc * kChunk + (2 * sc + jj) * kXB);"
 _K10_READ = """      const unsigned char* col = xs + (16 * w4 + g + 8 * rr) * 8;
@@ -140,9 +151,41 @@ _K5_ROW = """  constexpr int E = PA::E, T = PA::T, D = E / T;
 """
 
 
+# k9_tma: tiles whose rows are a multiple of 128 leave through TMA stores of
+# [8][16][128 bytes] boxes, one a 128-row half, from shared memory laid out
+# as the 128-byte swizzle wants it (16-byte unit u of a 128-byte row of
+# (plane, column c) at u ^ (c % 8)); smaller tiles as before
+_K9_WORD = "  return (i * kCols + c) * kQ + (q ^ ((4 * (c >> 1)) & (kQ - 4)));"
+_K9_TMA_WORD = """  if constexpr (kQ % 32) return (i * kCols + c) * kQ + (q ^ ((4 * (c >> 1)) & (kQ - 4)));
+  else return (q / 32) * (8 * kCols * 32) + (i * kCols + c) * 32 + ((q % 32) ^ (4 * (c % 8)));"""
+_K9_SIG = "long long m,\n                        long long other) {\n  extern __shared__ uint4 smem_v[];"
+_K9_TMA_SIG = ("long long m,\n                        long long other, const __grid_constant__ CUtensorMap tm) {\n"
+               "  extern __shared__ __align__(1024) uint4 smem_v[];")
+_K9_STORE = "  __syncthreads();\n  constexpr int kVec = R / 16;"
+_K9_TMA_STORE = """  if constexpr (R % 128 == 0) {
+    hopper::fence_proxy_async();
+    __syncthreads();
+    if (tid == 0) {
+      for (int h = 0; h < R / 128; ++h)
+        hopper::tma_store_3d(&tm, s + h * 8 * kCols * 32, (int)(j0 + 128 * h), (int)c0, 0);
+      hopper::tma_store_commit();
+      hopper::tma_store_wait_read();
+    }
+    return;
+  }
+  __syncthreads();
+  constexpr int kVec = R / 16;"""
+_K9_LAUNCH = "  gl_digits_kmajor_kernel<R><<<grid, kThreads, smem, st>>>((const uint64_t*)x, (int8_t*)out, m, other);"
+_K9_TMA_LAUNCH = """  CUtensorMap tm;
+  const cuuint64_t dims[3] = {(cuuint64_t)m, (cuuint64_t)other, 8}, str[2] = {(cuuint64_t)m, (cuuint64_t)(other * m)};
+  const cuuint32_t box[3] = {128, kCols, 8};
+  if (R % 128 == 0 && !hopper::tensor_map(&tm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, out, dims, str, box, true))
+    return (int)cudaErrorNotSupported;
+  gl_digits_kmajor_kernel<R><<<grid, kThreads, smem, st>>>((const uint64_t*)x, (int8_t*)out, m, other, tm);"""
+
 # name: (the sources built, [(file, text, replacement)])
 VARIANTS = {
-    "base": (_K23 + _K4 + _K5 + _K10 + _K11, []),
+    "base": (_K23 + _K4 + _K5 + _K9 + _K10 + _K11, []),
     "add_sub": (_K23, [("ntt_reg.cuh", "gl::bfly(u, t, a, b);", "a = gl::add(u, t);\n  b = gl::sub(u, t);")]),
     "mul": (_K23, [("ntt_reg.cuh", "gl::mul_cc(", "gl::mul("), ("ntt_phases.cu", "gl::mul_cc(", "gl::mul(")]),
     "k3_two_blocks": (_K23, [("ntt_phases.cu", _K3_BOUND, "__launch_bounds__(Plan<L>::NT)\nntt_phase_batched_kernel")]),
@@ -184,6 +227,13 @@ VARIANTS = {
         ("digit_dft.cu", _K10_MAP, """  const cuuint64_t edims[3] = {16, oo / 16, mm}, estr[2] = {128, oo * 8};
   const cuuint32_t ebox[3] = {16, 4, kXB};"""),
         ("digit_dft.cu", _K10_ENCODE, _K10_ENCODE.replace(", 2, x,", ", 3, x,").replace("false", "true"))]),
+    "k9_rows128": (_K9, [("gl_digits.cu", "constexpr int kMaxRows = 256;", "constexpr int kMaxRows = 128;")]),
+    "k9_cols32": (_K9, [("gl_digits.cu", "constexpr int kCols = 16;", "constexpr int kCols = 32;")]),
+    "k9_threads128": (_K9, [("gl_digits.cu", "constexpr int kThreads = 256;", "constexpr int kThreads = 128;")]),
+    "k9_threads512": (_K9, [("gl_digits.cu", "constexpr int kThreads = 256;", "constexpr int kThreads = 512;")]),
+    "k9_tma": (_K9, [("gl_digits.cu", '#include "smem_opt_in.cuh"', '#include "smem_opt_in.cuh"\n#include "tma_wgmma.cuh"'),
+                     ("gl_digits.cu", _K9_WORD, _K9_TMA_WORD), ("gl_digits.cu", _K9_SIG, _K9_TMA_SIG),
+                     ("gl_digits.cu", _K9_STORE, _K9_TMA_STORE), ("gl_digits.cu", _K9_LAUNCH, _K9_TMA_LAUNCH)]),
 }
 
 
@@ -244,6 +294,8 @@ def _build(names):
             with open(os.path.join(root, name, "ntt_small.cu")) as f:
                 lib.k5_reg_log2 = int(re.search(r"constexpr int kReg = (\d+);", f.read()).group(1))
             print(f"{name:16s} ntt_small_kernel<13,*>: a cluster of {lib.sezkp_ntt_small_cluster(13)} CTAs")
+        if "gl_digits.cu" in VARIANTS[name][0]:
+            lib.sezkp_gl_digits.argtypes = [vp, vp, ll, ll, ll, vp]
         if "digit_dft.cu" in VARIANTS[name][0]:
             lib.sezkp_digit_dft.argtypes = [vp, vp, vp, vp, i, ll, i, vp]
         if "digit_dft_last.cu" in VARIANTS[name][0]:
@@ -303,10 +355,17 @@ def _cases(dev):
 
         cases.append((f"K5 [8192] {'inverse' if inverse else 'forward'}", "ntt_small.cu", k5, y,
                        NT.small_ntt(x, inverse), 20))
-    # K10 on one phase of 2^23 (m = 256, other = 32768): stack in, recombined and summed; elements in
+    # K9's k-major stack and K10 on one phase of 2^23 (m = 256, other = 32768): stack in, recombined and
+    # summed; elements in
     m, other = 256, 32768
     w, a = ND.w_digits(8, False, 1, dev), rand_field((m, other), 8, dev)
     stack = ND.gl_digits(a)
+    y9 = torch.empty_like(stack)
+
+    def k9(lib):
+        return lib.sezkp_gl_digits(a.data_ptr(), y9.data_ptr(), m, other, 0, _kernels.stream_ptr())
+
+    cases.append((f"K9 [{m}, {other}] k-major", "gl_digits.cu", k9, y9, stack, 1))
     for label, src, elements, epilogue in (("stack, recombined", stack, False, 1), ("stack, summed", stack, False, 0),
                                            ("elements, recombined", a, True, 1)):
         yk = torch.empty((m, other), dtype=torch.int64 if epilogue else torch.int32, device=dev)
@@ -375,7 +434,7 @@ def main(argv=None) -> int:
             ms = (_replayed(fn, per_iter * args.iters) if per_iter else timeit(fn, dev, args.iters)) * 1e3
             times.setdefault((label, name), []).append(ms)
     for (label, name), ms in times.items():
-        how = "replayed" if label.startswith(("K5", "K10", "K11")) else ""
+        how = "replayed" if label.startswith(("K5", "K9", "K10", "K11")) else ""
         print(f"{label:26s} {name:16s} " + " ".join(f"{t:.4f}" for t in ms) + f" ms {how}")
     print(f"equality (every variant == the port's kernels at every shape): {ok}")
     return 0 if ok else 1

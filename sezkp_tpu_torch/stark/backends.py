@@ -41,6 +41,25 @@ class StarkV1:
         )
 
     @staticmethod
+    def prove_streaming(
+        blocks: Sequence[BlockSummary], manifest_root: bytes, device=None, **options
+    ) -> ProofArtifact:
+        """The same proof bytes from the O(chunk)-memory column commitments
+        (prove_v1 with streaming=True); `options` as for `prove`."""
+        proof = prove_v1(blocks, manifest_root, device, streaming=True, **options)
+        return ProofArtifact(
+            backend=BackendKind.STARK,
+            manifest_root=manifest_root,
+            proof_bytes=proof_mod.encode_proof(proof),
+            meta={
+                "proto": "stark-v1",
+                "mode": "streaming",
+                "domain_n": proof.domain_n,
+                "tau": proof.tau,
+            },
+        )
+
+    @staticmethod
     def verify(
         artifact: ProofArtifact, blocks: Sequence[BlockSummary], manifest_root: bytes
     ) -> None:

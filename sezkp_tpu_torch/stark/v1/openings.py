@@ -18,7 +18,9 @@ the column matrix while it is resident, else from ranges derived anew from
 the raw inputs. Roots and paths are bit-identical on every route (reference:
 crates/sezkp-stark/src/v1/openings.rs).
 
-The streaming engine is not ported yet.
+``StreamingColumnEngine`` (the streaming prove's) is host code, copied from
+the JAX package: it hashes one chunk of 2^COL_CHUNK_LOG2 rows at a time from
+the blocks (columns_stream.py), below ``DEVICE_HASH_MIN``.
 """
 
 from __future__ import annotations
@@ -197,3 +199,71 @@ class ColumnEngine:
                 )
             )
         return out
+
+
+class StreamingColumnEngine:
+    """Sublinear-memory column commitments: O(chunk) pending state while
+    building roots, recompute-the-chunk on open.
+
+    Equivalent of the reference's OnDemandOpenings (openings.rs:278-498) with
+    the per-row hashing replaced by per-chunk batched hashing. Roots, paths,
+    and openings are bit-identical to :class:`ColumnEngine` (cross-tested).
+    """
+
+    def __init__(self, blocks, chunk_log2: int = params.COL_CHUNK_LOG2):
+        from .columns_stream import rows_of_range, stream_column_chunks
+
+        self._stream_column_chunks = stream_column_chunks
+        self._rows_of_range = rows_of_range
+        self.blocks = blocks
+        self.chunk_log2 = chunk_log2
+        self.chunk_size = 1 << chunk_log2
+        self.tau = blocks[0].tau if blocks else 0
+        self.labels = all_labels(self.tau)
+        self.n_rows = sum(b.n_steps for b in blocks)
+        self._chunk_roots: Dict[str, "np.ndarray"] = {}
+        self._outer: Dict[str, MerkleTree] = {}
+
+    def build_roots(self) -> List[ColumnRoot]:
+        import numpy as np
+
+        per_label_roots: List[List[bytes]] = [[] for _ in self.labels]
+        for chunk in self._stream_column_chunks(self.blocks, self.chunk_size):
+            for li, label in enumerate(self.labels):
+                leaves = hash_field_leaves_labeled(G.to_le_bytes(chunk[li]), label)
+                per_label_roots[li].append(MerkleTree.from_leaves(leaves).root())
+        out = []
+        for li, label in enumerate(self.labels):
+            roots = np.frombuffer(
+                b"".join(per_label_roots[li]), dtype=np.uint8
+            ).reshape(len(per_label_roots[li]), 32)
+            self._chunk_roots[label] = roots
+            outer = MerkleTree.from_leaves(roots)
+            self._outer[label] = outer
+            out.append(ColumnRoot(label, outer.root()))
+        return out
+
+    def open_batch(self, requests) -> List[Opening]:
+        return [self.open(lb, r) for lb, r in requests]
+
+    def open(self, label: str, row_idx: int) -> Opening:
+        assert row_idx < self.n_rows, "row index out of range"
+        if label not in self._outer:
+            self.build_roots()
+        ci = row_idx // self.chunk_size
+        ii = row_idx - ci * self.chunk_size
+        start = ci * self.chunk_size
+        end = min(start + self.chunk_size, self.n_rows)
+        li = self.labels.index(label)
+        vals = self._rows_of_range(self.blocks, start, end)[li]
+        leaves = hash_field_leaves_labeled(G.to_le_bytes(vals), label)
+        inner = MerkleTree.from_leaves(leaves)
+        return Opening(
+            value_le=G.to_le_bytes(vals[ii]).tobytes(),
+            index=row_idx,
+            chunk_index=ci,
+            index_in_chunk=ii,
+            chunk_root=inner.root(),
+            path_in_chunk=inner.open(ii),
+            path_to_chunk=self._outer[label].open(ci),
+        )

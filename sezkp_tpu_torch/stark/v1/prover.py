@@ -18,6 +18,11 @@ same proof bytes:
   and the ZK masks are built on the host with numpy, and the commitments,
   the LDE and FRI take the device from their own size thresholds up.
 
+``streaming=True`` (StarkV1.prove_streaming) takes the host-columns route at
+every size and commits the columns with the O(chunk)-memory
+``StreamingColumnEngine`` (host hashing, chunk recomputed on open), as the
+JAX package does; the composition still reads the whole host columns.
+
 `device=None` means the CUDA card and raises when there is none; the CPU is
 used only when the caller passes device="cpu". Routes and memory policy are
 plain keyword arguments (below). The proof bytes depend on none of them, nor
@@ -51,7 +56,7 @@ from .masking import (
     derive_mask_coeffs,
     eval_masks_sum_at_points,
 )
-from .openings import CV_BUDGET_BYTES, DEVICE_HASH_MIN, ColumnEngine
+from .openings import CV_BUDGET_BYTES, DEVICE_HASH_MIN, ColumnEngine, StreamingColumnEngine
 from .proof import FriQuery, PerTapeOpen, ProofV1, RowOpenings
 
 # Rows from which the whole prove is device-resident (columns derived there).
@@ -130,6 +135,7 @@ def prove_v1(
     manifest_root: bytes,
     device=None,
     *,
+    streaming: bool = False,
     device_cols_min: int = DEVICE_COLS_MIN,
     cv_budget_bytes: int = CV_BUDGET_BYTES,
     release_planes_bytes: int = RELEASE_PLANES_BYTES,
@@ -141,7 +147,10 @@ def prove_v1(
 ) -> ProofV1:
     """Produce a v1 proof on `device` (None = the CUDA card).
 
-    From `device_cols_min` rows up the prove is device-resident; its memory
+    `streaming=True` selects the O(chunk)-memory column engine on the
+    host-columns route, whatever `device_cols_min` says: the same proof bytes
+    (reference: StarkV1::prove_streaming, lib.rs:170-191).
+    Otherwise, from `device_cols_min` rows up the prove is device-resident; its memory
     policy is `cv_budget_bytes` (leaf CVs resident up to this size, else
     roots only and recomputed openings), `release_planes_bytes` (the column
     matrix is dropped between composition and openings from this size up)
@@ -157,7 +166,7 @@ def prove_v1(
     stages = _Stages(timings, device)
 
     dc = tc = None
-    if n >= device_cols_min:
+    if n >= device_cols_min and not streaming:
         dc = DeviceColumns(blocks, device)
         dc.planes  # derive now, so the stage below is charged for it
         stages.mark("device_columns")
@@ -170,11 +179,14 @@ def prove_v1(
     tr.absorb_u64("n", n)
     tr.absorb_u64("tau", tau)
 
-    # ---- column commitments (batched) ----
-    engine = ColumnEngine(
-        tc, params.COL_CHUNK_LOG2, device=device, device_hash_min=device_hash_min,
-        dc=dc, cv_budget_bytes=cv_budget_bytes,
-    )
+    # ---- column commitments (batched; streaming = chunked recompute) ----
+    if streaming:
+        engine = StreamingColumnEngine(blocks, params.COL_CHUNK_LOG2)
+    else:
+        engine = ColumnEngine(
+            tc, params.COL_CHUNK_LOG2, device=device, device_hash_min=device_hash_min,
+            dc=dc, cv_budget_bytes=cv_budget_bytes,
+        )
     col_roots = engine.build_roots()
     tr.absorb_u64(params.DS_N_COLS, len(col_roots))
     for cr in col_roots:

@@ -139,6 +139,7 @@ PROVES = {
                            "blocks.jsonl", ["stream.cborseq"]),
     "stark-v0": (["--backend", "stark-v0"], "blocks.cbor", ["v0.cbor"]),
     "stark": (["--backend", "stark"], "blocks.cbor", ["v1.cbor"]),
+    "stark-stream": (["--backend", "stark", "--stream"], "blocks.cbor", ["v1s.cbor"]),
 }
 
 
@@ -181,14 +182,6 @@ def test_prove_without_device_needs_the_card(pair):
     out = os.path.join(port, "v0_no_device.cbor")
     assert cli.main(["prove", "--backend", "stark-v0", *common, "--out", out]) == 0
     assert cli.main(["verify", "--backend", "stark-v0", *common, "--proof", out]) == 0
-
-
-def test_stark_stream_is_not_ported_yet(pair):
-    port, _ = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["prove", "--backend", "stark", "--stream", "--blocks", os.path.join(port, "blocks.cbor"),
-                  "--manifest", os.path.join(port, "manifest.cbor"),
-                  "--out", os.path.join(port, "never.cbor"), *CPU])
 
 
 def test_device_hash_min_reaches_the_backends(pair, monkeypatch):
