@@ -42,7 +42,10 @@ Phases (any failure ends the run with a non-zero exit code):
                 proof is rejected; a second prove is byte-identical; the
                 launch counts of K1-K4 over the prove are > 0; wall time per
                 stage and peak device memory. Then one prove on the
-                host-columns route, whose bytes must be the same.
+                host-columns route, whose bytes must be the same, and one
+                with the chunked tops-only FRI forced
+                (fri_chunked_min_log2=23, the LDE's size), whose sha256 must
+                be the known one.
   parity-small  device-resident route: the proof made on the card equals,
                 byte for byte, the proof made with device="cpu" at T = 2^13
                 (where K5 must have launched exactly once) and T = 2^15, and
@@ -86,10 +89,18 @@ Phases (any failure ends the run with a non-zero exit code):
                 the in-process StarkV1.prove / FoldBackend.prove on the same
                 blocks and root, and so do the launch counts of K1-K7; the
                 streamed STARK proof has the resident proof's sha256.
-  prove-large   only when asked for (--phases env,prove-large): T = 2^22
-                (LDE 2^25, the largest size the port proves so far),
-                device-resident route: two proves (byte-identical) + verify,
-                stage seconds and peak device memory.
+  prove-large   T = 2^24, b = 512, tau = 8 (LDE 2^27) on the device-resident
+                route: a prove on the default FRI threshold (the chunked
+                tops-only FRI, which must be seen to run), verify, a
+                tampered proof rejected, a prove with the resident FRI
+                forced and one with the chunked FRI forced, all
+                byte-identical; for each prove stage seconds, peak device
+                memory, K1-K4 launches, proof bytes and sha256. Then FRI
+                alone on the LDE's domain in both modes (wall, peak device
+                memory above its input, equal roots and queries). Other sizes
+                and proves on request: --large-t 22,23 --large-modes
+                default,resident,chunked,release (release: the default with
+                the column matrix dropped before the LDE).
   sass          only when asked for (--phases env,sass): disassembles the
                 built kernels and a one-primitive probe and prints the
                 instruction counts, by issue pipe, that the operation bounds
@@ -173,10 +184,10 @@ def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> int:
     w = want[ne].cpu().numpy().view(bits).astype(np.uint64)
     return int(np.where(g > w, g - w, w - g).max())
 
-ALL_PHASES = ("env", "kernels", "prove", "parity-small", "fold", "crossover", "probes", "cli")
-# run only when asked for: the largest prove, and the disassembly that the
-# operation counts are read from
-EXTRA_PHASES = ("prove-large", "sass")
+ALL_PHASES = ("env", "kernels", "prove", "parity-small", "fold", "crossover", "probes", "cli",
+              "prove-large")
+# run only when asked for: the disassembly that the operation counts are read from
+EXTRA_PHASES = ("sass",)
 
 
 def log(msg: str) -> None:
@@ -1343,6 +1354,16 @@ def phase_prove(state) -> None:
     if art3.proof_bytes != art.proof_bytes:
         fail("the host-columns route and the device-resident route give different proofs")
 
+    del art3
+    art4, wall4, timings4, launches4, peak4 = _counted_prove(blocks, man.root, fri_chunked_min_log2=23)
+    log(f"[prove] chunked FRI forced, one prove wall {wall4:.2f} s; stages (s): {_stages(timings4)}; "
+        f"peak device memory {peak4} bytes; launches {json.dumps(launches4)}; sha256 {_sha(art4)}")
+    if "fri_commit_chunked" not in timings4:
+        fail("fri_chunked_min_log2=23 did not select the chunked FRI at LDE 2^23")
+    sha = _sha(art4)
+    if not (sha.startswith(STARK_SHA[0]) and sha.endswith(STARK_SHA[1])):
+        fail(f"the chunked-FRI prove's sha256 {sha} is not the known {STARK_SHA[0]}...{STARK_SHA[1]}")
+
 
 def phase_parity_small(state) -> None:
     from sezkp_tpu_torch.stark.backends import StarkV1
@@ -1795,24 +1816,105 @@ def phase_cli(state) -> None:
     state["launches_cli"] = {"stark": stark_launches, "fold": fold_launches}
 
 
-def phase_prove_large(state) -> None:
-    from sezkp_tpu_torch.stark.backends import StarkV1
+# the proves of the prove-large phase: prove_v1 options on top of the defaults
+LARGE_MODES = {
+    "default": {},
+    "resident": dict(fri_chunked_min_log2=64),
+    "chunked": dict(fri_chunked_min_log2=0),
+    "release": dict(release_planes_bytes=0),
+}
 
-    blocks, man, t_in = _make_input(1 << 22, 512, 8)
-    log(f"[prove-large] T = 2^22, b = 512, tau = 8: {len(blocks)} blocks, input made in {t_in:.1f} s")
-    art, wall, timings, launches, peak = _counted_prove(blocks, man.root)
-    log(f"[prove-large] device-resident route, first prove wall {wall:.2f} s; stages (s): {_stages(timings)}")
-    log(f"[prove-large] peak device memory {peak} bytes; proof {len(art.proof_bytes)} bytes; "
-        f"launches {json.dumps(launches)}")
-    art2, wall2, timings2, _, peak2 = _counted_prove(blocks, man.root)
-    log(f"[prove-large] second prove (tables cached) wall {wall2:.2f} s; stages (s): {_stages(timings2)}; "
-        f"peak device memory {peak2} bytes")
-    if art2.proof_bytes != art.proof_bytes:
-        fail("two proves of the same input differ")
-    del art2
-    t0 = time.time()
-    StarkV1.verify(art, blocks, man.root)
-    log(f"[prove-large] verify OK in {time.time() - t0:.2f} s")
+
+def _fri_alone(lde_log2: int) -> None:
+    """DeviceFri by itself on 2^lde_log2 seeded field values on the card, in
+    both modes, twice each: wall of its commit and 30 openings, and its peak
+    device memory above its input; the two modes' roots, final value and
+    queries must be equal."""
+    from sezkp_tpu_torch.stark.v1.fri_device import DeviceFri
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(lde_log2)
+    vals = torch.randint(0, 1 << 62, (1 << lde_log2,), generator=gen, device="cuda", dtype=torch.int64)
+    rng = np.random.default_rng(lde_log2)
+    betas = [int(x) for x in rng.integers(0, 1 << 62, lde_log2)]
+    rows = [int(x) for x in rng.integers(0, 1 << lde_log2, 30)]
+    want = None
+    for mode, threshold in (("resident", 64), ("chunked", 0)) * 2:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        eng = DeviceFri(vals, chunked_min_log2=threshold)
+        got = ([eng.commit_layer0()] + eng.commit_rest(betas), eng.final_value_le(),
+               [(q.positions, q.pairs) for q in eng.open_queries(rows)])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        log(f"[prove-large] FRI alone at 2^{lde_log2}, {mode}: {wall:.3f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() - base} bytes above its input")
+        if eng.chunked != (mode == "chunked"):
+            fail(f"DeviceFri took the wrong mode at 2^{lde_log2}")
+        del eng
+        if want is None:
+            want = got
+        elif got != want:
+            fail(f"FRI alone at 2^{lde_log2}: the {mode} mode's roots or queries differ")
+
+
+def phase_prove_large(state) -> None:
+    """The largest proves: for each size in --large-t, each mode of
+    --large-modes in turn (the first is that size's first prove, which builds
+    its tables), all byte-identical; the first verified and tampered."""
+    from sezkp_tpu_torch.stark.backends import StarkV1
+    from sezkp_tpu_torch.stark.v1.fri_device import FRI_CHUNKED_MIN_LOG2
+    from sezkp_tpu_torch.stark.v1.params import BLOWUP
+
+    b, tau = 512, 8
+    for t_log2 in state["large_t"]:
+        lde_log2 = t_log2 + BLOWUP.bit_length() - 1
+        blocks, man, t_in = _make_input(1 << t_log2, b, tau)
+        log(f"[prove-large] T = 2^{t_log2}, b = {b}, tau = {tau} (LDE 2^{lde_log2}): {len(blocks)} blocks, "
+            f"input made in {t_in:.1f} s")
+        first = None
+        for mode in state["large_modes"]:
+            options = LARGE_MODES[mode]
+            chunked = options.get("fri_chunked_min_log2", FRI_CHUNKED_MIN_LOG2) <= lde_log2
+            art, wall, timings, launches, peak = _counted_prove(blocks, man.root, **options)
+            ran = "fri_commit_chunked" in timings
+            log(f"[prove-large] T = 2^{t_log2} {mode} ({'chunked' if ran else 'resident'} FRI): wall {wall:.2f} s; "
+                f"stages (s): {_stages(timings)}; peak device memory {peak} bytes; launches "
+                f"{json.dumps(launches)}; proof {len(art.proof_bytes)} bytes, sha256 {_sha(art)}")
+            if "device_compose" not in timings:
+                fail("the prove did not take the device-resident route")
+            if ran != chunked:
+                fail(f"mode {mode}: the FRI took its {'chunked' if ran else 'resident'} mode")
+            for k in ("blake3_compress", "ntt_phase_axis", "ntt_phase_batched", "ntt_phase_last"):
+                if launches[k] <= 0:
+                    fail(f"kernel {k} was never launched by the prove")
+            if t_log2 == state["large_t"][-1] and mode == state["large_modes"][0]:
+                state["launches_large"] = launches
+            if first is None:
+                first = art
+                t0 = time.time()
+                StarkV1.verify(art, blocks, man.root)
+                log(f"[prove-large] verify OK in {time.time() - t0:.2f} s")
+                try:
+                    StarkV1.verify(_tamper(art), blocks, man.root)
+                except Exception as e:  # the verifier's rejection is what this step wants
+                    log(f"[prove-large] tampered proof rejected: {type(e).__name__}: {str(e)[:80]}")
+                else:
+                    fail("tampered proof was accepted")
+            elif art.proof_bytes != first.proof_bytes:
+                fail(f"T = 2^{t_log2}: the {mode} prove differs from the {state['large_modes'][0]} prove")
+            del art
+        if t_log2 == 24 and not any(
+            LARGE_MODES[m].get("fri_chunked_min_log2", FRI_CHUNKED_MIN_LOG2) <= lde_log2
+            for m in state["large_modes"]
+        ):
+            fail("no prove at T = 2^24 took the chunked FRI")
+        del blocks, man, first
+        torch.cuda.empty_cache()
+        _fri_alone(lde_log2)
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -1821,6 +1923,11 @@ def main() -> None:
                     help="comma-separated subset of: " + ", ".join(ALL_PHASES + EXTRA_PHASES))
     ap.add_argument("--sass-csrc", default=None,
                     help="sass phase: the ops/csrc directory of another checkout to compare with")
+    ap.add_argument("--large-t", default="24",
+                    help="prove-large phase: comma-separated log2 trace lengths (b = 512, tau = 8)")
+    ap.add_argument("--large-modes", default="default,resident,chunked",
+                    help="prove-large phase: the proves of each size, in order, from: "
+                         + ", ".join(LARGE_MODES))
     ap.add_argument("--cli-child", default=None, metavar="JSON",
                     help="run one CLI command line (a JSON list) and print its RSS, stages and launches "
                          "(the cli phase's child processes)")
@@ -1838,7 +1945,11 @@ def main() -> None:
     if args.cli_child is not None:
         cli_child(json.loads(args.cli_child))
         return
-    state = {"sass_csrc": args.sass_csrc}
+    state = {"sass_csrc": args.sass_csrc, "large_t": [int(t) for t in args.large_t.split(",") if t],
+             "large_modes": [m for m in args.large_modes.split(",") if m]}
+    for m in state["large_modes"]:
+        if m not in LARGE_MODES:
+            fail(f"unknown prove-large mode {m}")
     t_start = time.time()
     run = {"env": phase_env, "kernels": phase_kernels, "prove": phase_prove,
            "parity-small": phase_parity_small, "fold": phase_fold,
@@ -1869,6 +1980,9 @@ def main() -> None:
         else:
             counted = "launches_small" if name == "ntt_small" else "launches"
             k["launches"] = state[counted][name] if counted in state else None
+            if "launches_large" in state and name in state["launches_large"]:
+                # K1-K4 over the first prove of the prove-large phase's largest size
+                k["launches_prove_large"] = state["launches_large"][name]
         kernels.append(k)
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

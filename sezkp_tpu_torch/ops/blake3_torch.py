@@ -359,11 +359,14 @@ def columns_commit_device(values: torch.Tensor, prefixes: Sequence[bytes], chunk
 
 
 def columns_commit_roots_scan(values: torch.Tensor, prefixes: Sequence[bytes],
-                              chunk_log2: int, idx=None, seg_log2: int = 16):
+                              chunk_log2: int, idx=None, seg_log2: int = 21):
     """Memory-bounded chunk roots: the same roots as columns_commit_from_planes
     but no leaf-CV buffer; each column is hashed 2^seg_log2 rows at a time and
     only the chunk roots are kept. Openings then recompute the queried chunks
     (chunk_paths_from_planes / chunk_paths_from_ranges).
+    A segment costs 1 + chunk_log2 launches of K1 and their host-side calls
+    whatever its size, so segments are large (2^21 rows: 192 MB of messages
+    and CVs); the JAX package's 2^16 is one compiled scan there.
     Returns roots int32 [C, 8, n_chunks] on the device."""
     rows = _select(values, prefixes, idx)
     n = values.shape[1]
@@ -392,13 +395,15 @@ def _as_index(x, dev) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)
 
 
-def _paths_from_leaf_cvs(cur: torch.Tensor, cur_idx: torch.Tensor, chunk_log2: int):
+def _paths_from_leaf_cvs(cur: torch.Tensor, cur_idx: torch.Tensor, chunk_log2: int, rows=None):
     """cur: int32 [8, K * chunk] leaf CVs of K chunks side by side; cur_idx:
-    int64 [K] index of the opened leaf inside each chunk. Each chunk's tree is
-    built level by level and the sibling node gathered on the way.
-    Returns (paths uint8 [K, chunk_log2, 32], roots uint8 [K, 32])."""
+    int64 [R] index of the opened leaf inside chunk rows[R] (default: one
+    request a chunk, R = K, rows = 0 .. K-1). Each chunk's tree is built level
+    by level (chunks are aligned, so no sibling pair crosses one) and the
+    sibling nodes gathered on the way.
+    Returns (paths uint8 [R, chunk_log2, 32], chunk roots uint8 [K, 32])."""
     k = cur_idx.shape[0]
-    base = torch.arange(k, device=cur.device)
+    base = torch.arange(k, device=cur.device) if rows is None else rows
     paths: List[torch.Tensor] = []
     m = 1 << chunk_log2
     while m > 1:

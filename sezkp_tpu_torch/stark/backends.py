@@ -31,7 +31,9 @@ class StarkV1:
         """`options` are prove_v1's keyword arguments: the route
         (`device_cols_min`), the device route's memory policy
         (`cv_budget_bytes`, `release_planes_bytes`, `compose_scan_min_log2`),
-        the host-columns route's thresholds, and `timings`."""
+        the host-columns route's thresholds, the LDE domain from which FRI
+        takes its chunked tops-only mode (`fri_chunked_min_log2`), and
+        `timings`."""
         proof = prove_v1(blocks, manifest_root, device, **options)
         return ProofArtifact(
             backend=BackendKind.STARK,
@@ -45,7 +47,8 @@ class StarkV1:
         blocks: Sequence[BlockSummary], manifest_root: bytes, device=None, **options
     ) -> ProofArtifact:
         """The same proof bytes from the O(chunk)-memory column commitments
-        (prove_v1 with streaming=True); `options` as for `prove`."""
+        (prove_v1 with streaming=True); `options` as for `prove`
+        (`fri_chunked_min_log2` among them)."""
         proof = prove_v1(blocks, manifest_root, device, streaming=True, **options)
         return ProofArtifact(
             backend=BackendKind.STARK,

@@ -1,10 +1,23 @@
 """Device-resident FRI: folds, layer hashing, and tree building on the card.
 
-Counterpart of the resident mode of sezkp_tpu/stark/v1/fri_device.py. All FRI
-layers (values and every Merkle level) are computed on the device and stay
-there; only the layer roots (a few hundred bytes) and, later, the queried
-values and paths (tens of KB) come back to the host. Outputs are
-bit-identical to the host implementation in fri.py (cross-tested).
+Counterpart of sezkp_tpu/stark/v1/fri_device.py, with both of its modes:
+
+- **resident** (domains below `chunked_min_log2`): every FRI layer's values
+  and every level of its Merkle tree are computed on the device and stay
+  there;
+- **chunked, "tops-only"** (from `chunked_min_log2` up, default
+  FRI_CHUNKED_MIN_LOG2): a layer's tree keeps only its levels of
+  2^CHUNK_LOG2 leaves a node and above (a few MB at 2^27), built
+  2^seg_log2 leaves at a time so that no message or CV buffer grows with
+  the layer; the layer values stay resident, and the openings gather each
+  queried 2^CHUNK_LOG2-leaf chunk from them and hash it anew (the
+  reference's recompute-on-open schedule, fri_stream.rs:170-312), every
+  distinct chunk once and the chunks of all layers in one batch.
+
+Only the layer roots (a few hundred bytes; the chunked mode's top levels, a
+few MB) and, later, the queried values and paths (tens of KB) come back to
+the host. Both modes give the bytes of the host implementation in fri.py
+(cross-tested).
 
 Two phases are forced by the Fiat-Shamir schedule: betas depend on the
 layer-0 root (fri.rs:51-68), so ``commit_layer0`` commits layer 0 and
@@ -12,13 +25,13 @@ layer-0 root (fri.rs:51-68), so ``commit_layer0`` commits layer 0 and
 
 Leaf hashing and parent levels go through kernel K1 (ops/blake3_torch); the
 fold ``y[:half] + beta * y[half:]`` is plain field arithmetic on tensors, as
-it is outside any kernel in the JAX package. The chunked tops-only mode for
-domains from 2^26 up is not ported yet.
+it is outside any kernel in the JAX package (folded 2^seg_log2 values at a
+time, which bounds its temporaries).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -29,15 +42,66 @@ from .proof import FriQuery
 
 # Device handles layers down to this size; smaller tail layers fold on host.
 MIN_DEVICE_LAYER_LOG2 = 11
+# Chunked mode: the in-chunk path depth, which is also its smallest device
+# layer (one chunk), and the leaves hashed (values folded) a step.
+CHUNK_LOG2 = MIN_DEVICE_LAYER_LOG2
+SEG_LOG2 = 21
+# FRI domains (log2) from which the chunked mode is the default: the first
+# at which it lowers a prove's peak device memory on the H100 (PERF.md
+# section 7). At 2^26 (T = 2^23) the resident trees, 9.7 GB above the LDE
+# against the chunked mode's 0.86 GB, set the prove's peak (34.57 GB against
+# 30.07); at 2^25 and 2^27 both modes share a peak set outside the FRI. The
+# two modes take the same wall time within the spread between runs from
+# 2^23 to 2^27.
+FRI_CHUNKED_MIN_LOG2 = 26
+
+
+def _levels_up(base: torch.Tensor) -> List[torch.Tensor]:
+    """[8, K] CV planes -> every Merkle level from them to the root:
+    [8, K], [8, K/2], ..., [8, 1]."""
+    levels = [base]
+    while levels[-1].shape[1] > 1:
+        levels.append(BT.parent_level_planes(levels[-1]))
+    return levels
 
 
 def _tree_levels(vals: torch.Tensor) -> List[torch.Tensor]:
     """Field values [m] -> all Merkle levels as [8, m], [8, m/2], ..., [8, 1]
     CV planes (FRI leaves hash with an empty prefix, merkle.rs:132-138)."""
-    levels = [BT.hash_leaves_u64_planes(vals, b"")]
-    while levels[-1].shape[1] > 1:
-        levels.append(BT.parent_level_planes(levels[-1]))
-    return levels
+    return _levels_up(BT.hash_leaves_u64_planes(vals, b""))
+
+
+def _chunk_tops(vals: torch.Tensor, seg_log2: int) -> torch.Tensor:
+    """Field values [m] -> the tree's levels from the 2^CHUNK_LOG2-leaf chunk
+    roots up, side by side ([8, 2K - 1], K = m >> CHUNK_LOG2, the root last).
+    The chunk roots are hashed 2^seg_log2 leaves at a time, so the leaf
+    messages and CVs of one segment at most are alive."""
+    roots = BT.columns_commit_roots_scan(vals[None], [b""], CHUNK_LOG2, seg_log2=seg_log2)[0]
+    return torch.cat(_levels_up(roots), dim=1)
+
+
+def _split_top_levels(rows: np.ndarray) -> List[np.ndarray]:
+    """uint8 [2K - 1, 32] top nodes of one layer -> per-level arrays of
+    sizes K, K/2, ..., 1."""
+    out = []
+    off = 0
+    size = (rows.shape[0] + 1) // 2
+    while size >= 1:
+        out.append(rows[off : off + size])
+        off += size
+        size //= 2
+    return out
+
+
+def _fold(cur: torch.Tensor, beta: int, seg_log2: int) -> torch.Tensor:
+    """y[:half] + beta * y[half:], 2^seg_log2 values at a time."""
+    half = cur.shape[0] // 2
+    b = FT.scalar(beta, cur)
+    out = torch.empty(half, dtype=torch.int64, device=cur.device)
+    seg = min(1 << seg_log2, half)
+    for s in range(0, half, seg):
+        out[s : s + seg] = FT.add(cur[s : s + seg], FT.mul(b, cur[half + s : half + s + seg]))
+    return out
 
 
 class DeviceFri:
@@ -48,15 +112,29 @@ class DeviceFri:
         root0 = fri.commit_layer0()          # absorb, then derive betas
         roots = fri.commit_rest(betas)       # absorb each
         q = fri.open_queries(fri_rows)       # after query derivation
+
+    The chunked mode is taken for n >= 2^max(chunked_min_log2, CHUNK_LOG2 + 1)
+    (the JAX package's guard: its smallest device layer is one whole chunk,
+    so it keeps device layers down to 2^max(min_device_layer_log2,
+    CHUNK_LOG2)); `chunked` says which mode an engine took.
     """
 
-    def __init__(self, lde: torch.Tensor, min_device_layer_log2: int = MIN_DEVICE_LAYER_LOG2):
+    def __init__(self, lde: torch.Tensor, min_device_layer_log2: int = MIN_DEVICE_LAYER_LOG2,
+                 chunked_min_log2: int = FRI_CHUNKED_MIN_LOG2, seg_log2: int = SEG_LOG2):
         self.n = int(lde.shape[0])
         self.n_log2 = self.n.bit_length() - 1
         assert 1 << self.n_log2 == self.n
-        self._min_device_layer_log2 = min_device_layer_log2
+        if seg_log2 < CHUNK_LOG2:
+            raise ValueError(f"seg_log2 must be at least CHUNK_LOG2 = {CHUNK_LOG2}")
+        self.chunked = self.n_log2 >= max(chunked_min_log2, CHUNK_LOG2 + 1)
+        self._min_device_layer_log2 = (
+            max(min_device_layer_log2, CHUNK_LOG2) if self.chunked else min_device_layer_log2
+        )
+        self._seg_log2 = seg_log2
         self._vals: Dict[int, torch.Tensor] = {0: lde}  # layer -> values [n >> layer]
-        self._levels: Dict[int, List[torch.Tensor]] = {}  # layer -> tree levels
+        self._levels: Dict[int, List[torch.Tensor]] = {}  # resident: layer -> tree levels
+        self._tops: Dict[int, torch.Tensor] = {}  # chunked: layer -> [8, 2K - 1] top nodes
+        self._tops_host: Dict[int, List[np.ndarray]] = {}  # chunked: layer -> per-level rows
         self._roots: List[bytes] = []
         self._final_value: int | None = None
         self._dev_layers = 0
@@ -64,6 +142,9 @@ class DeviceFri:
         self._host_trees = {}
 
     def commit_layer0(self) -> bytes:
+        if self.chunked:
+            self._tops[0] = _chunk_tops(self._vals[0], self._seg_log2)
+            return BT.cv_planes_to_bytes(self._tops[0][:, -1:])[0].tobytes()
         self._levels[0] = _tree_levels(self._vals[0])
         return BT.cv_planes_to_bytes(self._levels[0][-1])[0].tobytes()
 
@@ -74,18 +155,26 @@ class DeviceFri:
         cur = self._vals[0]
         roots = []
         for l in range(1, self._dev_layers + 1):
-            half = cur.shape[0] // 2
-            cur = FT.add(cur[:half], FT.mul(FT.scalar(betas[l - 1], cur), cur[half:]))
+            cur = _fold(cur, betas[l - 1], self._seg_log2)
             self._vals[l] = cur
-            self._levels[l] = _tree_levels(cur)
-            roots.append(self._levels[l][-1])
-        # one pull for the layer roots, one for the tail values
-        self._roots = [
-            r.tobytes() for r in BT.cv_planes_to_bytes(torch.cat(roots, dim=1))
-        ]
+            if self.chunked:
+                self._tops[l] = _chunk_tops(cur, self._seg_log2)
+            else:
+                self._levels[l] = _tree_levels(cur)
+                roots.append(self._levels[l][-1])
+        if self.chunked:
+            curh = self._pull_tops_and_tail(cur)
+            self._roots = [
+                self._tops_host[l][-1][0].tobytes() for l in range(1, self._dev_layers + 1)
+            ]
+        else:
+            # one pull for the layer roots, one for the tail values
+            self._roots = [
+                r.tobytes() for r in BT.cv_planes_to_bytes(torch.cat(roots, dim=1))
+            ]
+            curh = FT.unpack(cur).copy()
 
         # host tail: fold the remaining small layers from the last device layer
-        curh = FT.unpack(cur).copy()
         self._host_layers = {}
         self._host_trees = {}
         layer_idx = self._dev_layers
@@ -99,10 +188,66 @@ class DeviceFri:
         self._final_value = int(curh[0])
         return list(self._roots)
 
+    def _pull_tops_and_tail(self, tail: torch.Tensor) -> np.ndarray:
+        """One transfer of every layer's top nodes and the last device
+        layer's values; keeps the tops as per-level rows, returns the values."""
+        order = sorted(self._tops)
+        words = [self._tops[l].t().reshape(-1) for l in order]  # [2K - 1, 8] row-major
+        flat = torch.cat(words + [tail.contiguous().view(torch.int32)]).cpu().numpy()
+        off = 0
+        for l, w in zip(order, words):
+            rows = flat[off : off + w.shape[0]].astype("<u4", copy=False)
+            self._tops_host[l] = _split_top_levels(rows.view(np.uint8).reshape(-1, 32))
+            off += w.shape[0]
+        return flat[off:].view(np.uint64).copy()
+
     def final_value_le(self) -> bytes:
         return int(self._final_value).to_bytes(8, "little")
 
     # ------------------------------ openings --------------------------------
+
+    def _plan(self, fri_rows: List[int], plan_value, plan_path) -> list:
+        """Per query: its positions and, per layer, the value and path
+        references (idx, then its pair idx ^ half) that plan_* return."""
+        plans = []
+        for idx0 in fri_rows:
+            positions = []
+            layer_plan = []
+            idx = idx0
+            layer_len = self.n
+            for l in range(self.n_log2):
+                positions.append(idx)
+                half = layer_len // 2
+                j = idx ^ half
+                layer_plan.append(
+                    (
+                        plan_value(l, idx),
+                        plan_path(l, layer_len, idx),
+                        plan_value(l, j),
+                        plan_path(l, layer_len, j),
+                    )
+                )
+                idx = idx % half
+                layer_len = half
+            positions.append(idx)
+            plans.append((positions, layer_plan))
+        return plans
+
+    @staticmethod
+    def _assemble(plans: list, value_bytes, path_bytes) -> List[FriQuery]:
+        return [
+            FriQuery(
+                positions=positions,
+                pairs=[
+                    (value_bytes(vi), path_bytes(pi), value_bytes(vj), path_bytes(pj))
+                    for vi, pi, vj, pj in layer_plan
+                ],
+            )
+            for positions, layer_plan in plans
+        ]
+
+    def _host_value(self, layer: int, idx: int) -> bytes:
+        return int(self._host_layers[layer][idx]).to_bytes(8, "little")
 
     def open_queries(self, fri_rows: List[int]) -> List[FriQuery]:
         """Assemble FriQuery objects for all query indices.
@@ -111,10 +256,11 @@ class DeviceFri:
         number; the gathers run on the device and come back in two pulls;
         assembly substitutes the gathered rows. Bit-identical to
         fri.fri_open_query."""
-        n_layers = self.n_log2 + 1
-        node_reqs: Dict[Tuple[int, int], List[int]] = {}  # (layer, level) -> positions
+        if self.chunked:
+            return self._open_queries_chunked(fri_rows)
+        node_reqs: Dict[tuple, List[int]] = {}  # (layer, level) -> positions
         val_reqs: Dict[int, List[int]] = {}  # layer -> indices
-        val_seq: Dict[Tuple[int, int], int] = {}
+        val_seq: Dict[tuple, int] = {}
 
         def plan_value(layer: int, idx: int):
             if layer > self._dev_layers:
@@ -143,32 +289,11 @@ class DeviceFri:
                 lev += 1
             return refs
 
-        plans = []
-        for idx0 in fri_rows:
-            positions = []
-            layer_plan = []
-            idx = idx0
-            layer_len = self.n
-            for l in range(n_layers - 1):
-                positions.append(idx)
-                half = layer_len // 2
-                j = idx ^ half
-                layer_plan.append(
-                    (
-                        plan_value(l, idx),
-                        plan_path(l, layer_len, idx),
-                        plan_value(l, j),
-                        plan_path(l, layer_len, j),
-                    )
-                )
-                idx = idx % half
-                layer_len = half
-            positions.append(idx)
-            plans.append((positions, layer_plan))
+        plans = self._plan(fri_rows, plan_value, plan_path)
 
         # queue every device gather, then one pull per kind
         dev = self._vals[0].device
-        node_off: Dict[Tuple[int, int], int] = {}
+        node_off: Dict[tuple, int] = {}
         parts = []
         off = 0
         for key, pos in node_reqs.items():
@@ -192,8 +317,7 @@ class DeviceFri:
         def value_bytes(ref) -> bytes:
             kind, x = ref
             if kind == "hostlayer":
-                layer, idx = x
-                return int(self._host_layers[layer][idx]).to_bytes(8, "little")
+                return self._host_value(*x)
             layer, i = x
             return int(vals[val_off[layer] + i]).to_bytes(8, "little")
 
@@ -203,11 +327,67 @@ class DeviceFri:
                 return self._host_trees[layer].open(target)
             return [nodes[node_off[key] + i].tobytes() for key, i in refs]
 
-        queries = []
-        for positions, layer_plan in plans:
-            pairs = [
-                (value_bytes(vi), path_bytes(pi), value_bytes(vj), path_bytes(pj))
-                for vi, pi, vj, pj in layer_plan
-            ]
-            queries.append(FriQuery(positions=positions, pairs=pairs))
-        return queries
+        return self._assemble(plans, value_bytes, path_bytes)
+
+    def _open_queries_chunked(self, fri_rows: List[int]) -> List[FriQuery]:
+        """Chunked-tree openings: each opened leaf of a device layer is a
+        request against its 2^CHUNK_LOG2-leaf chunk, which gives the value
+        and the in-chunk sibling path; the path's upper levels come from the
+        host copy of the layer's top nodes. Every distinct (layer, chunk) is
+        gathered from the resident layer values and hashed once, all layers
+        in one batch: one K1 launch for their leaves and one a parent level.
+        Bit-identical to fri.fri_open_query."""
+        mask = (1 << CHUNK_LOG2) - 1
+        req_seq: Dict[tuple, int] = {}  # (layer, index) -> request number
+
+        def plan_req(layer: int, idx: int) -> int:
+            return req_seq.setdefault((layer, idx), len(req_seq))
+
+        def plan_value(layer: int, idx: int):
+            if layer > self._dev_layers:
+                return ("hostlayer", (layer, idx))
+            return ("req", plan_req(layer, idx))
+
+        def plan_path(layer: int, layer_len: int, target: int):
+            if layer > self._dev_layers:
+                return ("hosttree", layer, target)
+            return ("req", plan_req(layer, target), layer, target)
+
+        plans = self._plan(fri_rows, plan_value, plan_path)
+
+        # distinct chunks in (layer, start) order: one gather a layer
+        chunk_row: Dict[tuple, int] = {}  # (layer, chunk start) -> row of `chunks`
+        for layer, idx in sorted(req_seq):
+            chunk_row.setdefault((layer, idx & ~mask), len(chunk_row))
+        dev = self._vals[0].device
+        offs = torch.arange(mask + 1, device=dev)[None, :]
+        parts = [
+            self._vals[layer][BT._as_index([s for l, s in chunk_row if l == layer], dev)[:, None] + offs]
+            for layer in sorted({l for l, _ in chunk_row})
+        ]
+        if parts:
+            chunks = torch.cat(parts)  # [K, 2^CHUNK_LOG2]
+            rows = BT._as_index([chunk_row[(layer, idx & ~mask)] for layer, idx in req_seq], dev)
+            idxs = BT._as_index([idx & mask for _, idx in req_seq], dev)
+            cvs = BT.hash_leaves_u64_planes(chunks.reshape(-1), b"")
+            paths8, _ = BT._paths_from_leaf_cvs(cvs, idxs, CHUNK_LOG2, rows=rows)
+            values = FT.unpack(chunks[rows, idxs])
+
+        def value_bytes(ref) -> bytes:
+            if ref[0] == "hostlayer":
+                return self._host_value(*ref[1])
+            return int(values[ref[1]]).to_bytes(8, "little")
+
+        def path_bytes(ref) -> List[bytes]:
+            if ref[0] == "hosttree":
+                _, layer, target = ref
+                return self._host_trees[layer].open(target)
+            _, i, layer, target = ref
+            out = [paths8[i, lev].tobytes() for lev in range(CHUNK_LOG2)]
+            t = target >> CHUNK_LOG2
+            for level in self._tops_host[layer][:-1]:
+                out.append(level[t ^ 1].tobytes())
+                t >>= 1
+            return out
+
+        return self._assemble(plans, value_bytes, path_bytes)

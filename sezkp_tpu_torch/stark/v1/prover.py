@@ -49,7 +49,7 @@ from .air import Alphas, compose_all_rows
 from .columns import TraceColumns
 from .columns_device import COMPOSE_SCAN_MIN_LOG2, DeviceColumns, compose_device
 from .fri import fri_commit, fri_open_query, layer_tree
-from .fri_device import DeviceFri
+from .fri_device import FRI_CHUNKED_MIN_LOG2, DeviceFri
 from .masking import (
     DEFAULT_MASK_DEG,
     DEFAULT_N_MASKS,
@@ -66,10 +66,14 @@ DEVICE_COLS_MIN = 1 << 13
 LDE_MIN_LOG2 = 15
 FRI_MIN_LOG2 = 14
 # The [C, n] column matrix (8 * C * n bytes) is dropped after the composition
-# and derived anew for the openings from this size up: 8 GiB keeps the
-# 1.98 GB of T = 2^22 resident and lets go of what would crowd the LDE and
-# FRI layers of a larger trace on an 80 GB card.
-RELEASE_PLANES_BYTES = 8 << 30
+# and the opened chunks are derived anew from the raw logs, from this size
+# up. On the H100 (PERF.md section 7) the LDE's temporaries set the peak of
+# the 2^23 and 2^24 proves with the matrix beside them: dropping it took the
+# peak from 34.11 to 30.07 GB (T = 2^23, 3.96 GB matrix) and from 36.80 to
+# 28.79 GB (2^24, 7.92 GB) for no wall time outside the spread between runs;
+# at 2^22 (1.98 GB, kept) a release did not move the peak, which falls
+# before it.
+RELEASE_PLANES_BYTES = 2 << 30
 
 
 def _next_wrap(idx: int, n: int) -> int:
@@ -143,6 +147,7 @@ def prove_v1(
     device_hash_min: int = DEVICE_HASH_MIN,
     lde_min_log2: int = LDE_MIN_LOG2,
     fri_min_log2: int = FRI_MIN_LOG2,
+    fri_chunked_min_log2: int = FRI_CHUNKED_MIN_LOG2,
     timings: Optional[dict] = None,
 ) -> ProofV1:
     """Produce a v1 proof on `device` (None = the CUDA card).
@@ -157,8 +162,11 @@ def prove_v1(
     and `compose_scan_min_log2` (composition slab by slab from this size up).
     Below `device_cols_min` the columns and the composition are host numpy
     and `device_hash_min`, `lde_min_log2`, `fri_min_log2` say from which sizes
-    the commitments, the LDE and FRI take the device. `timings`, when a dict,
-    receives wall seconds per stage."""
+    the commitments, the LDE and FRI take the device. On either route a
+    device FRI takes its chunked tops-only mode from LDE domains of
+    2^`fri_chunked_min_log2` up (fri_device.DeviceFri). `timings`, when a
+    dict, receives wall seconds per stage (`fri_commit_chunked` in place of
+    `fri_commit` when FRI took its chunked mode)."""
     device = resolve_device(device)
     n = sum(b.n_steps for b in blocks)
     tau = blocks[0].tau if blocks else 0
@@ -213,7 +221,8 @@ def prove_v1(
         base_dev = compose_device(dc, alphas, mask_coeffs, compose_scan_min_log2)
         _release_planes_if_large(dc, release_planes_bytes)
         stages.mark("device_compose")
-        fri_eng = DeviceFri(ntt_torch.deep_coset_lde(base_dev, blow_log2, shift, z))
+        fri_eng = DeviceFri(ntt_torch.deep_coset_lde(base_dev, blow_log2, shift, z),
+                            chunked_min_log2=fri_chunked_min_log2)
         del base_dev
     else:
         comp = compose_all_rows(tc, alphas)
@@ -223,11 +232,12 @@ def prove_v1(
         if base_log2 >= lde_min_log2:
             # one upload of the base evaluations; the LDE stays on the device
             lde_dev = ntt_torch.deep_coset_lde(FT.pack(base_vals, device), blow_log2, shift, z)
-            fri_eng = DeviceFri(lde_dev)
+            fri_eng = DeviceFri(lde_dev, chunked_min_log2=fri_chunked_min_log2)
         else:
             lde_vals = _deep_lde_host(base_vals, blow_log2, shift, z)
             if lde_k_log2 >= fri_min_log2:
-                fri_eng = DeviceFri(FT.pack(lde_vals, device))
+                fri_eng = DeviceFri(FT.pack(lde_vals, device),
+                                    chunked_min_log2=fri_chunked_min_log2)
     stages.mark("lde")
 
     # ---- FRI commit: bind root0, betas, fold + bind roots ----
@@ -244,7 +254,7 @@ def prove_v1(
         roots, layers, betas = fri_commit(tr, lde_vals)
         trees = [layer_tree(layer) for layer in layers]
         fri_final_value_le = G.to_le_bytes(layers[-1][0]).tobytes()
-    stages.mark("fri_commit")
+    stages.mark("fri_commit_chunked" if fri_eng is not None and fri_eng.chunked else "fri_commit")
 
     # ---- AIR query openings (batched: one device pass for all paths) --
     rows = params.derive_queries(tr, n, params.NUM_QUERIES)
