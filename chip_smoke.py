@@ -89,6 +89,25 @@ Phases (any failure ends the run with a non-zero exit code):
                 the in-process StarkV1.prove / FoldBackend.prove on the same
                 blocks and root, and so do the launch counts of K1-K7; the
                 streamed STARK proof has the resident proof's sha256.
+  sharded       parallel/ on torch.distributed, each rank a child process of
+                this script (--rank-child) with the SEZKP_* variables set:
+                worlds of 1 rank (NCCL), 2 and 4 ranks sharing the card
+                (gloo; their times are correctness runs, not scaling
+                figures) and, where the host has several cards, one rank a
+                card (NCCL). In each world, on every rank: the sharded NTT of
+                2^26 points (n1 = n2 = 2^13) both ways equals the single-card
+                forward_ntt / inverse_ntt (sha256 of the whole result), K2 and
+                K3 launched, wall ms (median of 3) and the all-to-all's ms;
+                the sharded Merkle root of 2^23 values equals the single-card
+                and the host root; prove_v1_sharded(commitments_only=True)
+                at T = 2^20, b = 512, tau = 8 has the known sha256 (that
+                proof verifies, a tampered copy is rejected), K1-K4
+                launched, stage seconds and peak device memory. Beside them:
+                commit_block_file_sharded of the input's 2048-block JSONL file
+                at 1, 2, 3, 5 hosts equals commit_block_file, and the CLI's
+                prove --backend stark as two ranks sharing the card
+                (SEZKP_DIST_BACKEND=gloo) writes, on each rank, the
+                single-process file.
   prove-large   T = 2^24, b = 512, tau = 8 (LDE 2^27) on the device-resident
                 route: a prove on the default FRI threshold (the chunked
                 tops-only FRI, which must be seen to run), verify, a
@@ -185,7 +204,7 @@ def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> int:
     return int(np.where(g > w, g - w, w - g).max())
 
 ALL_PHASES = ("env", "kernels", "prove", "parity-small", "fold", "crossover", "probes", "cli",
-              "prove-large")
+              "sharded", "prove-large")
 # run only when asked for: the disassembly that the operation counts are read from
 EXTRA_PHASES = ("sass",)
 
@@ -1655,9 +1674,14 @@ def _sample_peak_rss(peak: list, stop) -> None:
 def cli_child(argv) -> None:
     """The child of `_cli_child`: cli.main(argv) with every kernel's launch
     count set to 0 before, the STARK prove's stages collected, and one JSON
-    line of the results last."""
+    line of the results last. As a rank (SEZKP_PROCESS_ID set), the rank's
+    index replaces RANK in the arguments, so every rank writes its own file."""
     from sezkp_tpu_torch import cli
     from sezkp_tpu_torch.stark import backends
+
+    rank = os.environ.get("SEZKP_PROCESS_ID")
+    if rank is not None:
+        argv = [a.replace("RANK", rank) for a in argv]
 
     stages = {}
     prove_v1 = backends.prove_v1
@@ -1816,6 +1840,316 @@ def phase_cli(state) -> None:
     state["launches_cli"] = {"stark": stark_launches, "fold": fold_launches}
 
 
+# ---------------------------- the sharded phase -----------------------------
+
+SHARDED_NTT_LOGS = (13, 13)  # n1, n2: n = 2^26, the LDE of T = 2^23 (scripts/northstar_sharded.py)
+SHARDED_ROOT_LOG2 = 23  # the LDE of the T = 2^20 prove
+INGEST_HOSTS = (1, 2, 3, 5)
+K1_K4 = ("blake3_compress", "ntt_phase_axis", "ntt_phase_batched", "ntt_phase_last")
+
+
+def _sharded_values(k: int) -> np.ndarray:
+    """2^k seeded field values (the same in every process)."""
+    return np.random.default_rng(k).integers(0, 0xFFFFFFFF00000001, 1 << k, dtype=np.uint64)
+
+
+def _counts_zero(wrappers) -> None:
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def _counts(wrappers, names=K1_K4) -> dict:
+    return {k: wrappers[k].launches for k in names}
+
+
+def rank_child(job) -> None:
+    """One rank of a world of the sharded phase (`chip_smoke.py --rank-child
+    JSON`, started with the SEZKP_* variables set): the sharded NTT both
+    ways, the sharded Merkle root and the commitments-sharded prove, each
+    with the launch counts set to 0 just before and read just after; one JSON
+    line of the results last (and in the job's file)."""
+    from sezkp_tpu_torch.parallel import distributed as D
+    from sezkp_tpu_torch.parallel.commit_sharded import sharded_merkle_root_u64
+    from sezkp_tpu_torch.parallel.engine import prove_v1_sharded
+    from sezkp_tpu_torch.parallel.mesh import make_global, replicated_pull
+    from sezkp_tpu_torch.parallel.ntt_sharded import build_sharded_ntt
+    from sezkp_tpu_torch.stark.v1.proof import encode_proof
+
+    D.ensure_initialized(device=job["device"], backend=job["backend"])
+    mesh = D.global_mesh()
+    wrappers = _wrappers()
+    dev = mesh.device
+    res = {"rank": mesh.rank, "size": mesh.size, "device": str(dev), "backend": mesh.backend, "ntt": {}}
+
+    l1, l2 = job["ntt_logs"]
+    x = make_global(mesh, 1, _sharded_values(l1 + l2).reshape(1 << l1, 1 << l2))
+    for inverse in (False, True):
+        f = build_sharded_ntt(mesh, l1, l2, inverse)
+        _counts_zero(wrappers)
+        torch.cuda.synchronize(dev)
+        t0 = time.time()
+        y = f(x)  # the first call builds this rank's tables
+        torch.cuda.synchronize(dev)
+        first_ms = (time.time() - t0) * 1e3
+        launches = _counts(wrappers)
+        walls, a2a = [], []
+        for rep in range(3):
+            D.barrier(f"ntt{int(inverse)}{rep}")
+            tm = {}
+            t0 = time.time()
+            y = f(x, timings=tm)
+            torch.cuda.synchronize(dev)
+            walls.append((time.time() - t0) * 1e3)
+            a2a.append(tm["all_to_all"] * 1e3)
+        got = replicated_pull(mesh, y, 0)  # Y[k1, k2]: natural order is its transpose
+        res["ntt"]["inverse" if inverse else "forward"] = dict(
+            sha256=hashlib.sha256(np.ascontiguousarray(got.T).tobytes()).hexdigest(),
+            first_ms=first_ms, wall_ms=sorted(walls)[1], all_to_all_ms=sorted(a2a)[1],
+            walls_ms=walls, all_to_all_each_ms=a2a, launches=launches)
+        del y, got
+    del x
+
+    v = _sharded_values(job["root_log2"])
+    _counts_zero(wrappers)
+    D.barrier("root")
+    t0 = time.time()
+    root = sharded_merkle_root_u64(v, mesh)
+    torch.cuda.synchronize(dev)
+    res["root"] = dict(hex=root.hex(), ms=(time.time() - t0) * 1e3, launches=_counts(wrappers))
+
+    blocks, man, t_in = _make_input(1 << 20, 512, 8)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _counts_zero(wrappers)
+    D.barrier("prove")
+    timings = {}
+    t0 = time.time()
+    proof = prove_v1_sharded(blocks, man.root, mesh, commitments_only=True, timings=timings)
+    torch.cuda.synchronize(dev)
+    wall = time.time() - t0
+    res["prove"] = dict(
+        sha256=hashlib.sha256(encode_proof(proof)).hexdigest(), wall_s=wall, input_s=t_in,
+        stages=timings, launches=_counts(wrappers), peak_device_bytes=torch.cuda.max_memory_allocated(dev),
+        manifest_root=man.root.hex())
+    with open(os.path.join(job["out"], f"rank{mesh.rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    D.barrier("done")
+    torch.distributed.destroy_process_group()
+    print(json.dumps(res), flush=True)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _launch_world(argv, d: int, env=None, timeout: int = 600) -> list:
+    """argv as d ranks on the SEZKP_* contract (tcp://localhost, a free
+    port); fails the run if a rank fails."""
+    from sezkp_tpu_torch.parallel import distributed as D
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = D.launch(argv, d, f"tcp://localhost:{_free_port()}", env=env, cwd=here, timeout=timeout)
+    for r, (rc, so, se) in enumerate(res):
+        if rc != 0:
+            fail(f"rank {r} of {d} exited with {rc}\n{so[-2000:]}{se[-4000:]}")
+    return res
+
+
+def _sharded_worlds():
+    """(name, ranks, backend, device): NCCL at one rank, gloo for ranks that
+    share card 0, and NCCL across every card (one a rank: device None) where
+    the host has several."""
+    worlds = [("D=1 nccl", 1, "nccl", None), ("D=2 gloo, shared card", 2, "gloo", "cuda:0"),
+              ("D=4 gloo, shared card", 4, "gloo", "cuda:0")]
+    n = torch.cuda.device_count()
+    if n >= 2:
+        worlds.append((f"D={n} nccl, a card a rank", n, "nccl", None))
+    return worlds
+
+
+def _files_and_ingest(blocks, tmp: str, cbor_written, out: dict) -> None:
+    """Host work beside the worlds (a thread): the blocks as CBOR for the CLI
+    world (then `cbor_written` is set) and as JSONL, then
+    commit_block_file_sharded of the JSONL file at every INGEST_HOSTS against
+    the sequential commit_block_file."""
+    from sezkp_tpu_torch.commit.merkle import commit_block_file
+    from sezkp_tpu_torch.core import io as core_io
+    from sezkp_tpu_torch.parallel.ingest import commit_block_file_sharded
+
+    t0 = time.time()
+    try:
+        core_io.write_block_summaries_auto(os.path.join(tmp, "blocks.cbor"), blocks)
+    finally:  # the CLI world waits for it, and fails on a missing file
+        cbor_written.set()
+    jsonl = os.path.join(tmp, "blocks.jsonl")
+    core_io.write_block_summaries_jsonl(jsonl, blocks)
+    out["files_s"] = time.time() - t0
+    t0 = time.time()
+    seq = commit_block_file(jsonl, jsonl + ".manifest.cbor")
+    out["sequential_s"] = time.time() - t0
+    for hosts in INGEST_HOSTS:
+        t0 = time.time()
+        sh = commit_block_file_sharded(jsonl, n_hosts=hosts)
+        out[hosts] = dict(s=time.time() - t0, equal=(sh.root, sh.n_leaves) == (seq.root, seq.n_leaves))
+
+
+def phase_sharded(state) -> None:
+    """parallel/ on torch.distributed, one process a rank (children of this
+    script): worlds of 1 (NCCL), 2 and 4 ranks sharing the card (gloo), and
+    of every card where there are several (NCCL). In each: the sharded NTT
+    at 2^26 both ways against the single-card forward_ntt / inverse_ntt, the
+    sharded Merkle root of 2^23 values against the single-card and the host
+    root, the T = 2^20 commitments-sharded prove against the known sha256.
+    Beside them: the ingest of that input's file at 1, 2, 3, 5 hosts, and the
+    CLI's prove --backend stark as two ranks sharing the card."""
+    import tempfile
+
+    from sezkp_tpu_torch.commit.merkle import write_manifest_auto
+    from sezkp_tpu_torch.core import io as core_io
+    from sezkp_tpu_torch.crypto import blake3 as b3
+    from sezkp_tpu_torch.ops import _kernels
+    from sezkp_tpu_torch.ops import blake3_torch as BT
+    from sezkp_tpu_torch.ops import goldilocks as G
+    from sezkp_tpu_torch.ops import goldilocks_torch as FT
+    from sezkp_tpu_torch.ops import ntt_torch as NT
+    from sezkp_tpu_torch.stark.backends import StarkV1
+
+    _kernels.lib()  # built once here, before any rank starts
+    torch.cuda.empty_cache()
+    t_ref = time.time()
+    l1, l2 = SHARDED_NTT_LOGS
+    x = FT.pack(_sharded_values(l1 + l2), "cuda")
+    want_ntt, single_ms = {}, {}
+    for inverse in (False, True):
+        fn = NT.inverse_ntt if inverse else NT.forward_ntt
+        y = fn(x)
+        want_ntt["inverse" if inverse else "forward"] = hashlib.sha256(FT.unpack(y).tobytes()).hexdigest()
+        single_ms["inverse" if inverse else "forward"] = time_cuda(lambda: fn(x), 3)
+        del y
+    del x
+    log(f"[sharded] single card at 2^{l1 + l2}: forward_ntt {single_ms['forward']:.3f} ms, inverse_ntt "
+        f"{single_ms['inverse']:.3f} ms; sha256 {want_ntt['forward'][:16]}.., {want_ntt['inverse'][:16]}..")
+
+    v = _sharded_values(SHARDED_ROOT_LOG2)
+    t0 = time.time()
+    cv = BT.hash_leaves_u64_planes(FT.pack(v, "cuda"))
+    while cv.shape[1] > 1:
+        cv = BT.parent_level_planes(cv)
+    card_root = BT.cv_planes_to_bytes(cv)[0].tobytes()
+    card_s = time.time() - t0
+    t0 = time.time()
+    host_root = b3.merkle_root_leaves(b3.hash_many(G.to_le_bytes(v).reshape(-1, 8)))
+    log(f"[sharded] Merkle root of 2^{SHARDED_ROOT_LOG2} values: single card {card_s:.3f} s, host "
+        f"{time.time() - t0:.2f} s, {card_root.hex()[:16]}..")
+    if card_root != host_root:
+        fail("the single-card Merkle root differs from the host root")
+    del v, cv
+
+    blocks, man, _ = _make_input(1 << 20, 512, 8)
+    art = StarkV1.prove(blocks, man.root)
+    if not (_sha(art).startswith(STARK_SHA[0]) and _sha(art).endswith(STARK_SHA[1])):
+        fail(f"the single-process prove's sha256 {_sha(art)} is not the known one")
+    StarkV1.verify(art, blocks, man.root)
+    try:
+        StarkV1.verify(_tamper(art), blocks, man.root)
+    except Exception as e:  # the verifier's rejection is what this step wants
+        log(f"[sharded] the single-process T = 2^20 proof verifies; a tampered copy is rejected: "
+            f"{type(e).__name__}")
+    else:
+        fail("tampered proof was accepted")
+
+    log(f"[sharded] references made in {time.time() - t_ref:.1f} s")
+    here = os.path.abspath(__file__)
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        j = lambda name: os.path.join(tmp, name)
+        write_manifest_auto(j("manifest.cbor"), man)
+        core_io.write_proof_auto(j("single.cbor"), art)
+        ingest, cbor_written = {}, threading.Event()
+        host_thread = threading.Thread(target=_files_and_ingest, args=(blocks, tmp, cbor_written, ingest))
+        host_thread.start()
+        del blocks
+
+        for name, d, backend, device in _sharded_worlds():
+            out = j(f"world{d}{backend}")
+            os.makedirs(out)
+            job = dict(backend=backend, device=device, ntt_logs=SHARDED_NTT_LOGS, root_log2=SHARDED_ROOT_LOG2, out=out)
+            t0 = time.time()
+            _launch_world([sys.executable, here, "--rank-child", json.dumps(job)], d)
+            ranks = []
+            for r in range(d):
+                with open(os.path.join(out, f"rank{r}.json")) as fh:
+                    ranks.append(json.load(fh))
+            results[name] = ranks
+            log(f"[sharded] world {name}: {time.time() - t0:.1f} s (ranks started, run, ended)"
+                + ("; shared-card times are correctness runs, not scaling figures" if "shared" in name else ""))
+            for res in ranks:
+                r = res["rank"]
+                if res["backend"] != backend or res["size"] != d:
+                    fail(f"{name} rank {r}: backend {res['backend']}, size {res['size']}")
+                for way, nt in res["ntt"].items():
+                    log(f"[sharded] {name} rank {r} ({res['device']}) NTT 2^{l1 + l2} {way}: wall {nt['wall_ms']:.3f} ms "
+                        f"(median of 3: {', '.join(f'{w:.3f}' for w in nt['walls_ms'])}), all-to-all "
+                        f"{nt['all_to_all_ms']:.3f} ms, first call {nt['first_ms']:.1f} ms; launches "
+                        f"{json.dumps(nt['launches'])}")
+                    if nt["sha256"] != want_ntt[way]:
+                        fail(f"{name} rank {r}: the sharded {way} NTT differs from the single-card one")
+                    if nt["launches"]["ntt_phase_axis"] <= 0 or nt["launches"]["ntt_phase_batched"] <= 0:
+                        fail(f"{name} rank {r}: K2 or K3 did not launch in the sharded NTT")
+                rt = res["root"]
+                log(f"[sharded] {name} rank {r} Merkle root 2^{SHARDED_ROOT_LOG2}: {rt['ms']:.1f} ms; launches "
+                    f"{json.dumps(rt['launches'])}")
+                if rt["hex"] != card_root.hex() or rt["launches"]["blake3_compress"] <= 0:
+                    fail(f"{name} rank {r}: the sharded root differs from the single-card root, or K1 did not launch")
+                pv = res["prove"]
+                log(f"[sharded] {name} rank {r} prove T = 2^20 (commitments sharded): wall {pv['wall_s']:.2f} s; "
+                    f"stages (s): {_stages(pv['stages'])}; peak device memory {pv['peak_device_bytes']} bytes; "
+                    f"launches {json.dumps(pv['launches'])}; sha256 {pv['sha256']}")
+                if pv["sha256"] != _sha(art) or pv["manifest_root"] != man.root.hex():
+                    fail(f"{name} rank {r}: the commitments-sharded proof differs from the single-process proof")
+                for k in K1_K4:
+                    if pv["launches"][k] <= 0:
+                        fail(f"{name} rank {r}: kernel {k} was never launched by the sharded prove")
+
+        # the CLI as two ranks sharing the card: every rank writes its own file
+        with open(j("single.cbor"), "rb") as fh:
+            single = fh.read()
+        cbor_written.wait()
+        t0 = time.time()
+        # the cli phase checks the file against the manifest; here each rank reads it once
+        argv = ["prove", "--backend", "stark", "--blocks", j("blocks.cbor"), "--manifest", j("manifest.cbor"),
+                "--assume-committed", "--out", j("cli_RANK.cbor")]
+        cli_ranks = _launch_world([sys.executable, here, "--cli-child", json.dumps(argv)], 2,
+                                  env={"SEZKP_DIST_BACKEND": "gloo"})
+        for r, (_, so, _) in enumerate(cli_ranks):
+            rep = json.loads(so.strip().splitlines()[-1])
+            with open(j(f"cli_{r}.cbor"), "rb") as fh:
+                same = fh.read() == single
+            log(f"[sharded] CLI prove --backend stark, rank {r} of 2 (gloo, shared card): cli.main "
+                f"{rep['wall_s']:.2f} s; stages (s): {_stages(rep['stages'])}; launches "
+                f"{json.dumps(rep['launches'])}; file == single-process file: {same}")
+            if not same:
+                fail(f"the CLI's rank {r} wrote another file than the single-process prove")
+        log(f"[sharded] CLI world: {time.time() - t0:.1f} s")
+        host_thread.join()
+    if "files_s" not in ingest:
+        fail("writing the blocks files failed")
+    log(f"[sharded] beside the worlds: the blocks written as CBOR and JSONL in {ingest['files_s']:.1f} s; "
+        f"ingest of the 2048-block JSONL file: sequential commit_block_file {ingest['sequential_s']:.2f} s; "
+        + "; ".join(f"{h} hosts {ingest[h]['s']:.2f} s, equal {ingest[h]['equal']}" for h in INGEST_HOSTS))
+    if not all(ingest.get(h, {}).get("equal") for h in INGEST_HOSTS):
+        fail("the sharded ingest's root differs from commit_block_file's")
+    state["launches_sharded"] = {
+        name: [{"ntt": {w: nt["launches"] for w, nt in res["ntt"].items()}, "root": res["root"]["launches"],
+                "prove": res["prove"]["launches"]} for res in ranks]
+        for name, ranks in results.items()
+    }
+
+
 # the proves of the prove-large phase: prove_v1 options on top of the defaults
 LARGE_MODES = {
     "default": {},
@@ -1931,6 +2265,9 @@ def main() -> None:
     ap.add_argument("--cli-child", default=None, metavar="JSON",
                     help="run one CLI command line (a JSON list) and print its RSS, stages and launches "
                          "(the cli phase's child processes)")
+    ap.add_argument("--rank-child", default=None, metavar="JSON",
+                    help="run one rank of a world of the sharded phase (started with the SEZKP_* "
+                         "variables set; the phase's child processes)")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     for p in phases:
@@ -1945,6 +2282,9 @@ def main() -> None:
     if args.cli_child is not None:
         cli_child(json.loads(args.cli_child))
         return
+    if args.rank_child is not None:
+        rank_child(json.loads(args.rank_child))
+        return
     state = {"sass_csrc": args.sass_csrc, "large_t": [int(t) for t in args.large_t.split(",") if t],
              "large_modes": [m for m in args.large_modes.split(",") if m]}
     for m in state["large_modes"]:
@@ -1954,7 +2294,7 @@ def main() -> None:
     run = {"env": phase_env, "kernels": phase_kernels, "prove": phase_prove,
            "parity-small": phase_parity_small, "fold": phase_fold,
            "crossover": phase_crossover, "probes": phase_probes, "cli": phase_cli,
-           "prove-large": phase_prove_large,
+           "sharded": phase_sharded, "prove-large": phase_prove_large,
            "sass": phase_sass}
     if "env" not in phases:
         state["smi"] = nvidia_smi_line()
@@ -1983,6 +2323,13 @@ def main() -> None:
             if "launches_large" in state and name in state["launches_large"]:
                 # K1-K4 over the first prove of the prove-large phase's largest size
                 k["launches_prove_large"] = state["launches_large"][name]
+            if "launches_sharded" in state and name in K1_K4:
+                # K1-K4 on every rank of every world of the sharded phase: over
+                # one sharded NTT each way, the sharded root and the sharded prove
+                k["launches_sharded"] = {
+                    world: [{"ntt": {w: c[name] for w, c in r["ntt"].items()}, "root": r["root"][name],
+                             "prove": r["prove"][name]} for r in ranks]
+                    for world, ranks in state["launches_sharded"].items()}
         kernels.append(k)
     log(f"total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

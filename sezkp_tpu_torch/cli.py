@@ -242,7 +242,29 @@ def main(argv=None) -> int:
 
     init_tracing()
     args = build_parser().parse_args(argv)
+    _join_ranks(args)
     return args.fn(args)
+
+
+def _join_ranks(args) -> None:
+    """Multi-process: wire this process into the world of ranks when the
+    SEZKP_COORDINATOR / SEZKP_NUM_PROCESSES / SEZKP_PROCESS_ID variables are
+    set (parallel/distributed.py), on the device of the command (the card for
+    prove --backend stark | fold unless --device says otherwise, else the
+    CPU); a no-op without them. Ranks on the card build the CUDA kernels
+    once: rank 0 builds, the others wait at a barrier, then load the build."""
+    from .parallel import distributed
+
+    on_card = getattr(args, "fn", None) is cmd_prove and args.backend in ("stark", "fold")
+    device = args.device if on_card else "cpu"
+    if not distributed.ensure_initialized(device=device):
+        return
+    if distributed.local_device().type == "cuda":
+        from .ops import _kernels
+
+        if distributed.is_coordinator():
+            _kernels.build()
+        distributed.barrier("kernels")
 
 
 if __name__ == "__main__":

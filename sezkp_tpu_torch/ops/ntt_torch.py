@@ -90,12 +90,14 @@ _tables: Dict[Tuple, torch.Tensor] = {}
 
 
 def _cached(key: Tuple, device, make) -> torch.Tensor:
-    """Twiddle/table tensors are cached per (kind, sizes, inverse, device)."""
+    """Twiddle/table tensors are cached per (kind, sizes, inverse, device).
+    `make` returns the table as a uint64 array, or as a tensor on `device`."""
     device = torch.device(device)
     k = key + (str(device),)
     t = _tables.get(k)
     if t is None:
-        t = FT.pack(make(), device)
+        t = make()
+        t = t if isinstance(t, torch.Tensor) else FT.pack(t, device)
         _tables[k] = t
     return t
 
@@ -136,31 +138,37 @@ def _small_twiddles(l1: int, l2: int, inverse: bool, device) -> torch.Tensor:
     )
 
 
+def _pow_table(n_log2: int, exps: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """w_n^e (w_n^-e for the inverse), n = 2^n_log2, for an int64 tensor of
+    exponents e >= 0 (taken mod n), on the exponents' device: two gathers from
+    tables of 2^ceil(n_log2/2) and 2^floor(n_log2/2) powers and one product, so
+    no n-entry table is built."""
+    h = n_log2 // 2
+    w = _root(n_log2, inverse)
+    lo = _cached(("powlo", n_log2, inverse), exps.device, lambda: ntt_host.powers(w, 1 << h))
+    hi = _cached(("powhi", n_log2, inverse), exps.device,
+                 lambda: ntt_host.powers(G.pow_scalar(w, 1 << h), 1 << (n_log2 - h)))
+    e = exps & ((1 << n_log2) - 1)
+    return FT.mul(hi[e >> h], lo[e & ((1 << h) - 1)])
+
+
 def _t_outer(l1: int, l2: int, l3: int, inverse: bool, device):
     """Phase-A twiddle of the three-factor form, w_n^(k1*(a2*m3+a3)), split as
     TA[k1, a2] = w_n^(m3*k1*a2) ([m1, m2]) times TB[k1, a3] = w_n^(k1*a3)
-    ([m1, m3]): m1*(m2+m3) table elements to read instead of n."""
+    ([m1, m3]): m1*(m2+m3) table elements to read instead of n. Built on the
+    device from two tables of about sqrt(n) powers (`_pow_table`)."""
     m1, m2, m3 = 1 << l1, 1 << l2, 1 << l3
     n_log2 = l1 + l2 + l3
-    n_mask = (1 << n_log2) - 1
 
-    def wp():
-        return ntt_host.powers(_root(n_log2, inverse), 1 << n_log2)
+    def table(kind, cols, step):
+        def make():
+            k1 = torch.arange(m1, dtype=torch.int64, device=device)[:, None]
+            c = torch.arange(cols, dtype=torch.int64, device=device)[None, :]
+            return _pow_table(n_log2, step * k1 * c, inverse)
 
-    k1 = np.arange(m1, dtype=np.int64)
+        return _cached((kind, l1, l2, l3, inverse), device, make)
 
-    def make_ta():
-        a2 = np.arange(m2, dtype=np.int64)
-        return wp()[((m3 * k1[:, None] * a2[None, :]) & n_mask).astype(np.uint64)]
-
-    def make_tb():
-        a3 = np.arange(m3, dtype=np.int64)
-        return wp()[((k1[:, None] * a3[None, :]) & n_mask).astype(np.uint64)]
-
-    return (
-        _cached(("ta", l1, l2, l3, inverse), device, make_ta),
-        _cached(("tb", l1, l2, l3, inverse), device, make_tb),
-    )
+    return table("ta", m2, m3), table("tb", m3, 1)
 
 
 def _t_mid(l_mid: int, l_last: int, inverse: bool, device) -> torch.Tensor:
@@ -723,6 +731,13 @@ small_ntt.launches = 0
 # ------------------------------ whole transforms -----------------------------
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous, and on the card 16-byte aligned (copied if not): the
+    phase kernels K2-K4 take 16-byte aligned rows."""
+    x = x.contiguous()
+    return x.clone() if x.is_cuda and x.data_ptr() % 16 else x
+
+
 def _ntt(a: torch.Tensor, inverse: bool) -> torch.Tensor:
     n = int(a.shape[0])
     n_log2 = n.bit_length() - 1
@@ -734,8 +749,7 @@ def _ntt(a: torch.Tensor, inverse: bool) -> torch.Tensor:
         return small_ntt(a, inverse)
     dev = a.device
     inv_n = G.inv(n) if inverse else 1
-    if a.is_cuda and a.data_ptr() % 16:
-        a = a.clone()  # the phase kernels take 16-byte aligned rows
+    a = _aligned(a)
     logs = _factor_logs(n_log2)
     if len(logs) == 2:
         l1, l2 = logs
@@ -817,3 +831,81 @@ def deep_coset_lde(base: torch.Tensor, blow_log2: int, shift: int, z: int) -> to
 def deep_coset_lde_u64(base_evals: np.ndarray, blow_log2: int, shift: int, z: int, device=None):
     device = torch.device("cuda" if device is None else device)
     return FT.unpack(deep_coset_lde(FT.pack(base_evals, device), blow_log2, shift, z))
+
+
+# ------------------- batched transforms along one axis ----------------------
+#
+# The local steps of the sharded four-step NTT (parallel/ntt_sharded.py): the
+# DFT down every column of [m, C] with the step-2 twiddle fused, and the DFT
+# along every row of [R, m]. Up to 2^max_phase_log2 points (K2's largest m)
+# one K2 launch; above, two phases (K2 and K3) of the factorisation `_ntt`
+# uses, and one copy that puts the two output digits in natural order.
+
+MAX_PHASE_LOG2 = 10
+
+
+def _step2_twiddle(n_log2: int, rows: torch.Tensor, col0: int, cols: int, inverse: bool) -> torch.Tensor:
+    """T[i, c] = w_n^(rows[i] * (col0 + c)), int64 [len(rows), cols]."""
+    c = col0 + torch.arange(cols, dtype=torch.int64, device=rows.device)
+    return _pow_table(n_log2, rows[:, None] * c[None, :], inverse)
+
+
+def _split_logs(m_log2: int, max_phase_log2: int) -> Tuple[int, int]:
+    la = m_log2 // 2
+    if max(la, m_log2 - la) > max_phase_log2:
+        raise ValueError(f"a transform of 2^{m_log2} points takes more than two phases of "
+                         f"at most 2^{max_phase_log2}")
+    return la, m_log2 - la
+
+
+def ntt_axis0(x: torch.Tensor, inverse: bool, n_log2: int = None, col0: int = 0,
+              max_phase_log2: int = MAX_PHASE_LOG2) -> torch.Tensor:
+    """The length-m DFT down every column of x [m, C], natural order in and
+    out; with `n_log2`, output (k, c) times w_n^(k * (col0 + c)), the step-2
+    twiddle of a four-step transform of n points whose columns col0 ..
+    col0 + C - 1 x holds. On the card C is even.
+
+    One phase (m <= 2^max_phase_log2): K2 with that table fused. Two
+    (m = a*b, j = ja*b + jb, k = ka + a*kb): K2 down the ja axis of
+    [a, b*C] times w_n^(ka*(col0 + c)) (a table of period C), then K3 on
+    [a, b, C] with ta = w_m^(ka*jb) before and t = w_n^(a*kb*(col0 + c))
+    after its DFT over jb; the result [ka, kb, C] is copied to [kb, ka, C]."""
+    x = _aligned(x)
+    m, cols = x.shape
+    m_log2 = m.bit_length() - 1
+    dev = x.device
+    tw_key = ("step2", n_log2, m_log2, col0, cols, inverse)
+    if m_log2 <= max_phase_log2:
+        tw = None if n_log2 is None else _cached(tw_key, dev, lambda: _step2_twiddle(
+            n_log2, torch.arange(m, dtype=torch.int64, device=dev), col0, cols, inverse))
+        return phase_axis(x, 0, inverse, tw=tw)
+    la, lb = _split_logs(m_log2, max_phase_log2)
+    a, b = 1 << la, 1 << lb
+    tw1 = t = None
+    if n_log2 is not None:
+        ka = torch.arange(a, dtype=torch.int64, device=dev)
+        kb = torch.arange(b, dtype=torch.int64, device=dev)
+        tw1 = _cached(tw_key + ("a",), dev, lambda: _step2_twiddle(n_log2, ka, col0, cols, inverse))
+        t = _cached(tw_key + ("b",), dev, lambda: _step2_twiddle(n_log2, a * kb, col0, cols, inverse))
+    y = phase_axis(x.reshape(a, b * cols), 0, inverse, tw=tw1, tw_period=None if tw1 is None else cols)
+    y = phase_batched(y.reshape(a, b, cols), inverse, ta=_twiddle_matrix(la, lb, inverse, dev), t=t)
+    return y.transpose(0, 1).contiguous().reshape(m, cols)
+
+
+def ntt_axis1(x: torch.Tensor, inverse: bool, scale: int = 1,
+              max_phase_log2: int = MAX_PHASE_LOG2) -> torch.Tensor:
+    """The length-m DFT along every row of x [R, m], natural order in and out,
+    times `scale`. One phase: K2. Two (m = m1*m2, j = j1*m2 + j2,
+    k = k1 + m1*k2): K3 on [R, m1, m2], the DFT over j1 times w_m^(k1*j2),
+    then K2 along the rows of [R*m1, m2] with the scale; the result
+    [R, k1, k2] is copied to [R, k2, k1]."""
+    x = _aligned(x)
+    rows, m = x.shape
+    m_log2 = m.bit_length() - 1
+    if m_log2 <= max_phase_log2:
+        return phase_axis(x, 1, inverse, scale=scale)
+    l1, l2 = _split_logs(m_log2, max_phase_log2)
+    m1, m2 = 1 << l1, 1 << l2
+    y = phase_batched(x.reshape(rows, m1, m2), inverse, t=_twiddle_matrix(l1, l2, inverse, x.device))
+    y = phase_axis(y.reshape(rows * m1, m2), 1, inverse, scale=scale)
+    return y.reshape(rows, m1, m2).transpose(1, 2).contiguous().reshape(rows, m)

@@ -149,6 +149,8 @@ def prove_v1(
     fri_min_log2: int = FRI_MIN_LOG2,
     fri_chunked_min_log2: int = FRI_CHUNKED_MIN_LOG2,
     timings: Optional[dict] = None,
+    engine=None,
+    tc=None,
 ) -> ProofV1:
     """Produce a v1 proof on `device` (None = the CUDA card).
 
@@ -166,20 +168,25 @@ def prove_v1(
     device FRI takes its chunked tops-only mode from LDE domains of
     2^`fri_chunked_min_log2` up (fri_device.DeviceFri). `timings`, when a
     dict, receives wall seconds per stage (`fri_commit_chunked` in place of
-    `fri_commit` when FRI took its chunked mode)."""
+    `fri_commit` when FRI took its chunked mode).
+
+    `engine` injects a column-commitment engine (the sharded one,
+    parallel/engine.py) and takes the host-columns route; `tc` optionally
+    supplies the host TraceColumns alongside it."""
     device = resolve_device(device)
     n = sum(b.n_steps for b in blocks)
     tau = blocks[0].tau if blocks else 0
     assert n & (n - 1) == 0 and n > 0, "trace length must be a power of two"
     stages = _Stages(timings, device)
 
-    dc = tc = None
-    if n >= device_cols_min and not streaming:
+    dc = None
+    if engine is None and n >= device_cols_min and not streaming:
         dc = DeviceColumns(blocks, device)
         dc.planes  # derive now, so the stage below is charged for it
         stages.mark("device_columns")
     else:
-        tc = TraceColumns.build(blocks)
+        if tc is None:
+            tc = TraceColumns.build(blocks)
         stages.mark("host_columns")
 
     tr = Blake3Transcript(params.DS_V1_DOMAIN)
@@ -188,9 +195,9 @@ def prove_v1(
     tr.absorb_u64("tau", tau)
 
     # ---- column commitments (batched; streaming = chunked recompute) ----
-    if streaming:
+    if engine is None and streaming:
         engine = StreamingColumnEngine(blocks, params.COL_CHUNK_LOG2)
-    else:
+    elif engine is None:
         engine = ColumnEngine(
             tc, params.COL_CHUNK_LOG2, device=device, device_hash_min=device_hash_min,
             dc=dc, cv_budget_bytes=cv_budget_bytes,

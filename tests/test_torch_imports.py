@@ -61,6 +61,14 @@ def test_port_files_found():
         "sezkp_tpu_torch/models/__init__.py",
         "sezkp_tpu_torch/models/vm_riscv.py",
         "sezkp_tpu_torch/ffi.py",
+        "sezkp_tpu_torch/parallel/__init__.py",
+        "sezkp_tpu_torch/parallel/mesh.py",
+        "sezkp_tpu_torch/parallel/distributed.py",
+        "sezkp_tpu_torch/parallel/ntt_sharded.py",
+        "sezkp_tpu_torch/parallel/commit_sharded.py",
+        "sezkp_tpu_torch/parallel/ingest.py",
+        "sezkp_tpu_torch/parallel/engine.py",
+        "sezkp_tpu_torch/parallel/prove_sharded.py",
     ):
         assert must in rel
 
