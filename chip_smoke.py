@@ -100,9 +100,18 @@ Phases (any failure ends the run with a non-zero exit code):
                 K3 launched, wall ms (median of 3) and the all-to-all's ms;
                 the sharded Merkle root of 2^23 values equals the single-card
                 and the host root; prove_v1_sharded(commitments_only=True)
-                at T = 2^20, b = 512, tau = 8 has the known sha256 (that
-                proof verifies, a tampered copy is rejected), K1-K4
-                launched, stage seconds and peak device memory. Beside them:
+                at T = 2^18, b = 512, tau = 8 equals the single-process
+                prove, K1-K4 launched; the fully sharded prove_v1_sharded
+                (the default) at T = 2^20, b = 512, tau = 8 has the known
+                sha256 (the single-process proof verifies, a tampered copy
+                is rejected), K1-K3 launched, its collective bytes by scope
+                equal traffic.analytic_phase_bytes' terms; stage seconds and
+                peak device memory of each prove. In one world (every card,
+                NCCL, where there are several; else the world of one rank)
+                the fully sharded prove at T = 2^23 (scripts/
+                northstar_sharded.py's shape) equals rank 0's single-card
+                StarkV1.prove of the same input, which has the known sha256.
+                Beside them:
                 commit_block_file_sharded of the input's 2048-block JSONL file
                 at 1, 2, 3, 5 hosts equals commit_block_file, and the CLI's
                 prove --backend stark as two ranks sharing the card
@@ -1844,8 +1853,15 @@ def phase_cli(state) -> None:
 
 SHARDED_NTT_LOGS = (13, 13)  # n1, n2: n = 2^26, the LDE of T = 2^23 (scripts/northstar_sharded.py)
 SHARDED_ROOT_LOG2 = 23  # the LDE of the T = 2^20 prove
+COMMIT_T_LOG2 = 18  # the commitments-sharded prove's trace (b = 512, tau = 8)
+FULL_T_LOG2 = 20  # the fully sharded prove's trace in every world
+NORTHSTAR_T_LOG2 = 23  # scripts/northstar_sharded.py's trace, in one world
+# sha256 of the STARK proof at T = 2^23, b = 512, tau = 8 (single-card, every FRI mode)
+NORTHSTAR_SHA = ("d132fa9c", "87b543d7")
 INGEST_HOSTS = (1, 2, 3, 5)
 K1_K4 = ("blake3_compress", "ntt_phase_axis", "ntt_phase_batched", "ntt_phase_last")
+K1_K5 = K1_K4 + ("ntt_small",)
+K1_K3 = K1_K4[:3]  # the kernels of the fully sharded prove (the local NTT phases are K2/K3)
 
 
 def _sharded_values(k: int) -> np.ndarray:
@@ -1862,18 +1878,47 @@ def _counts(wrappers, names=K1_K4) -> dict:
     return {k: wrappers[k].launches for k in names}
 
 
+def _rank_prove(mesh, wrappers, blocks, man, tag: str, **options) -> dict:
+    """One prove_v1_sharded on this rank, with the launch counts and the
+    collective tally set to 0 just before and read just after: sha256,
+    wall, stages, K1-K5 launches, peak device memory, and the tally by scope
+    (commit, phase1, phase2, open)."""
+    from sezkp_tpu_torch.parallel import distributed as D
+    from sezkp_tpu_torch.parallel.engine import prove_v1_sharded
+    from sezkp_tpu_torch.parallel.traffic import collective_bytes
+    from sezkp_tpu_torch.stark.v1.proof import encode_proof
+
+    dev = mesh.device
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _counts_zero(wrappers)
+    mesh.tally.clear()
+    D.barrier(tag)
+    timings = {}
+    t0 = time.time()
+    proof = prove_v1_sharded(blocks, man.root, mesh, timings=timings, **options)
+    torch.cuda.synchronize(dev)
+    wall = time.time() - t0
+    return dict(
+        sha256=hashlib.sha256(encode_proof(proof)).hexdigest(), wall_s=wall, stages=timings,
+        launches=_counts(wrappers, K1_K5), peak_device_bytes=torch.cuda.max_memory_allocated(dev),
+        manifest_root=man.root.hex(),
+        traffic={sc or "commit": collective_bytes(mesh, sc) for sc in ("", "phase1", "phase2", "open")})
+
+
 def rank_child(job) -> None:
     """One rank of a world of the sharded phase (`chip_smoke.py --rank-child
     JSON`, started with the SEZKP_* variables set): the sharded NTT both
-    ways, the sharded Merkle root and the commitments-sharded prove, each
-    with the launch counts set to 0 just before and read just after; one JSON
-    line of the results last (and in the job's file)."""
+    ways, the sharded Merkle root, the commitments-sharded prove at
+    T = 2^COMMIT_T_LOG2 and the fully sharded prove at T = 2^FULL_T_LOG2,
+    and in the world the job names the fully sharded prove at
+    T = 2^NORTHSTAR_T_LOG2 (rank 0 then proves that input on its card alone
+    too); each with the launch counts set to 0 just before and read just
+    after; one JSON line of the results last (and in the job's file)."""
     from sezkp_tpu_torch.parallel import distributed as D
     from sezkp_tpu_torch.parallel.commit_sharded import sharded_merkle_root_u64
-    from sezkp_tpu_torch.parallel.engine import prove_v1_sharded
     from sezkp_tpu_torch.parallel.mesh import make_global, replicated_pull
     from sezkp_tpu_torch.parallel.ntt_sharded import build_sharded_ntt
-    from sezkp_tpu_torch.stark.v1.proof import encode_proof
 
     D.ensure_initialized(device=job["device"], backend=job["backend"])
     mesh = D.global_mesh()
@@ -1917,20 +1962,24 @@ def rank_child(job) -> None:
     torch.cuda.synchronize(dev)
     res["root"] = dict(hex=root.hex(), ms=(time.time() - t0) * 1e3, launches=_counts(wrappers))
 
-    blocks, man, t_in = _make_input(1 << 20, 512, 8)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    _counts_zero(wrappers)
-    D.barrier("prove")
-    timings = {}
-    t0 = time.time()
-    proof = prove_v1_sharded(blocks, man.root, mesh, commitments_only=True, timings=timings)
-    torch.cuda.synchronize(dev)
-    wall = time.time() - t0
-    res["prove"] = dict(
-        sha256=hashlib.sha256(encode_proof(proof)).hexdigest(), wall_s=wall, input_s=t_in,
-        stages=timings, launches=_counts(wrappers), peak_device_bytes=torch.cuda.max_memory_allocated(dev),
-        manifest_root=man.root.hex())
+    blocks, man, t_in = _make_input(1 << COMMIT_T_LOG2, 512, 8)
+    res["prove"] = _rank_prove(mesh, wrappers, blocks, man, "commitments", commitments_only=True)
+    del blocks
+    blocks, man, t_in = _make_input(1 << FULL_T_LOG2, 512, 8)
+    res["prove_full"] = _rank_prove(mesh, wrappers, blocks, man, "full")
+    res["prove_full"]["input_s"] = t_in
+    del blocks
+    if job.get("northstar"):
+        blocks, man, t_in = _make_input(1 << NORTHSTAR_T_LOG2, 512, 8)
+        ns = _rank_prove(mesh, wrappers, blocks, man, "northstar")
+        ns["input_s"] = t_in
+        if mesh.rank == 0:  # the single-card prove of the same input, on this rank's card
+            torch.cuda.empty_cache()
+            art, wall, timings, launches, peak = _counted_prove(blocks, man.root)
+            ns["single"] = dict(sha256=_sha(art), wall_s=wall, stages=timings, peak_device_bytes=peak)
+            del art
+        res["northstar"] = ns
+        del blocks
     with open(os.path.join(job["out"], f"rank{mesh.rank}.json"), "w") as fh:
         json.dump(res, fh)
     D.barrier("done")
@@ -2003,8 +2052,11 @@ def phase_sharded(state) -> None:
     of every card where there are several (NCCL). In each: the sharded NTT
     at 2^26 both ways against the single-card forward_ntt / inverse_ntt, the
     sharded Merkle root of 2^23 values against the single-card and the host
-    root, the T = 2^20 commitments-sharded prove against the known sha256.
-    Beside them: the ingest of that input's file at 1, 2, 3, 5 hosts, and the
+    root, the T = 2^18 commitments-sharded prove against the single-process
+    prove, the T = 2^20 fully sharded prove against the known sha256 and
+    its collectives against the analytic model; in one world the fully
+    sharded prove at T = 2^23 against the single-card prove. Beside them:
+    the ingest of the T = 2^20 input's file at 1, 2, 3, 5 hosts, and the
     CLI's prove --backend stark as two ranks sharing the card."""
     import tempfile
 
@@ -2049,7 +2101,10 @@ def phase_sharded(state) -> None:
         fail("the single-card Merkle root differs from the host root")
     del v, cv
 
-    blocks, man, _ = _make_input(1 << 20, 512, 8)
+    blocks_c, man_c, _ = _make_input(1 << COMMIT_T_LOG2, 512, 8)
+    sha_commit = _sha(StarkV1.prove(blocks_c, man_c.root))
+    del blocks_c
+    blocks, man, _ = _make_input(1 << FULL_T_LOG2, 512, 8)
     art = StarkV1.prove(blocks, man.root)
     if not (_sha(art).startswith(STARK_SHA[0]) and _sha(art).endswith(STARK_SHA[1])):
         fail(f"the single-process prove's sha256 {_sha(art)} is not the known one")
@@ -2074,10 +2129,13 @@ def phase_sharded(state) -> None:
         host_thread.start()
         del blocks
 
-        for name, d, backend, device in _sharded_worlds():
+        worlds = _sharded_worlds()
+        northstar = worlds[-1][0] if torch.cuda.device_count() >= 2 else worlds[0][0]
+        for name, d, backend, device in worlds:
             out = j(f"world{d}{backend}")
             os.makedirs(out)
-            job = dict(backend=backend, device=device, ntt_logs=SHARDED_NTT_LOGS, root_log2=SHARDED_ROOT_LOG2, out=out)
+            job = dict(backend=backend, device=device, ntt_logs=SHARDED_NTT_LOGS, root_log2=SHARDED_ROOT_LOG2,
+                       out=out, northstar=name == northstar)
             t0 = time.time()
             _launch_world([sys.executable, here, "--rank-child", json.dumps(job)], d)
             ranks = []
@@ -2106,14 +2164,27 @@ def phase_sharded(state) -> None:
                 if rt["hex"] != card_root.hex() or rt["launches"]["blake3_compress"] <= 0:
                     fail(f"{name} rank {r}: the sharded root differs from the single-card root, or K1 did not launch")
                 pv = res["prove"]
-                log(f"[sharded] {name} rank {r} prove T = 2^20 (commitments sharded): wall {pv['wall_s']:.2f} s; "
-                    f"stages (s): {_stages(pv['stages'])}; peak device memory {pv['peak_device_bytes']} bytes; "
-                    f"launches {json.dumps(pv['launches'])}; sha256 {pv['sha256']}")
-                if pv["sha256"] != _sha(art) or pv["manifest_root"] != man.root.hex():
+                log(f"[sharded] {name} rank {r} prove T = 2^{COMMIT_T_LOG2} (commitments sharded): wall "
+                    f"{pv['wall_s']:.2f} s; stages (s): {_stages(pv['stages'])}; peak device memory "
+                    f"{pv['peak_device_bytes']} bytes; launches {json.dumps(pv['launches'])}; sha256 {pv['sha256']}")
+                if pv["sha256"] != sha_commit:
                     fail(f"{name} rank {r}: the commitments-sharded proof differs from the single-process proof")
                 for k in K1_K4:
                     if pv["launches"][k] <= 0:
-                        fail(f"{name} rank {r}: kernel {k} was never launched by the sharded prove")
+                        fail(f"{name} rank {r}: kernel {k} was never launched by the commitments-sharded prove")
+                _check_full_prove(name, r, d, res["prove_full"], FULL_T_LOG2, _sha(art), man.root.hex())
+                if "northstar" in res:
+                    ns = res["northstar"]
+                    if r == 0:
+                        sg = ns["single"]
+                        log(f"[sharded] {name} T = 2^{NORTHSTAR_T_LOG2}: the single-card prove on rank 0's card: "
+                            f"wall {sg['wall_s']:.2f} s; stages (s): {_stages(sg['stages'])}; peak device memory "
+                            f"{sg['peak_device_bytes']} bytes; sha256 {sg['sha256']}")
+                        sha_ns = sg["sha256"]
+                        if not (sha_ns.startswith(NORTHSTAR_SHA[0]) and sha_ns.endswith(NORTHSTAR_SHA[1])):
+                            fail(f"the single-card T = 2^{NORTHSTAR_T_LOG2} proof's sha256 {sha_ns} is not the "
+                                 f"known {NORTHSTAR_SHA[0]}...{NORTHSTAR_SHA[1]}")
+                    _check_full_prove(name, r, d, ns, NORTHSTAR_T_LOG2, sha_ns, None)
 
         # the CLI as two ranks sharing the card: every rank writes its own file
         with open(j("single.cbor"), "rb") as fh:
@@ -2145,9 +2216,60 @@ def phase_sharded(state) -> None:
         fail("the sharded ingest's root differs from commit_block_file's")
     state["launches_sharded"] = {
         name: [{"ntt": {w: nt["launches"] for w, nt in res["ntt"].items()}, "root": res["root"]["launches"],
-                "prove": res["prove"]["launches"]} for res in ranks]
+                "prove": res["prove"]["launches"], "prove_full": res["prove_full"]["launches"],
+                **({"northstar": res["northstar"]["launches"]} if "northstar" in res else {})}
+               for res in ranks]
         for name, ranks in results.items()
     }
+
+
+def _traffic_against_model(tr: dict, t_log2: int, d: int) -> list:
+    """The fully sharded prove's tally (one rank) against
+    traffic.analytic_phase_bytes: (term, measured, model, equal) rows. The
+    relations of the two ppermute terms are those of
+    tests/test_torch_parallel_full.py (the model's halo term counts each
+    element's two u32 planes again; its fold term is what a rank hands to
+    the fold's ppermutes, whose outputs are twice that)."""
+    from sezkp_tpu_torch.parallel.traffic import analytic_phase_bytes
+
+    m = analytic_phase_bytes(t_log2, 3, d, tau=8)
+    p1, p2 = m["phase1"], m["phase2"]
+    a2a = sum(p1[k] for k in ("intt_input_a2a", "intt_internal_a2a", "coeff_relayout_a2a",
+                              "lde_internal_a2a", "natural_order_a2a"))
+    get = lambda sc, op, key: tr[sc].get(op, {}).get(key, 0)
+    rows = [
+        ("phase 1 all-to-all link bytes", get("phase1", "all-to-all", "link_bytes"), a2a),
+        ("phase 1 all-gather link bytes", get("phase1", "all-gather", "link_bytes"), p1["roots_all_gather"]),
+        ("phase 1 halo ppermute bytes x 2", 2 * get("phase1", "collective-permute", "bytes"),
+         p1["halo_ppermute"] if d > 1 else 0),
+        ("phase 2 all-gather link bytes", get("phase2", "all-gather", "link_bytes"),
+         p2["tail_all_gather"] + p2["roots_all_gather"]),
+        ("phase 2 fold ppermute bytes / 2", get("phase2", "collective-permute", "bytes") / 2,
+         p2["fold_ppermutes"] if d > 1 else 0),
+    ]
+    return [(name, got, want, got == want) for name, got, want in rows]
+
+
+def _check_full_prove(name, r, d, pv, t_log2, want_sha, want_root) -> None:
+    """Log and check one rank's fully sharded prove: its bytes, K1-K3
+    launched, its tally against the analytic model."""
+    log(f"[sharded] {name} rank {r} prove T = 2^{t_log2} (fully sharded): wall {pv['wall_s']:.2f} s "
+        f"(input made in {pv['input_s']:.1f} s); stages (s): {_stages(pv['stages'])}; peak device memory "
+        f"{pv['peak_device_bytes']} bytes; launches {json.dumps(pv['launches'])}; sha256 {pv['sha256']}")
+    log(f"[sharded] {name} rank {r} T = 2^{t_log2} collectives by scope: {json.dumps(pv['traffic'])}")
+    rows = _traffic_against_model(pv["traffic"], t_log2, d)
+    log(f"[sharded] {name} rank {r} T = 2^{t_log2} tally against analytic_phase_bytes: "
+        + "; ".join(f"{n} {g} vs {w}" for n, g, w, _ in rows))
+    if pv["sha256"] != want_sha or (want_root is not None and pv["manifest_root"] != want_root):
+        fail(f"{name} rank {r}: the fully sharded T = 2^{t_log2} proof differs from the single-card proof")
+    for k in K1_K3:
+        if pv["launches"][k] <= 0:
+            fail(f"{name} rank {r}: kernel {k} was never launched by the fully sharded prove")
+    if "sharded_phase1" not in pv["stages"] or "host_compose" in pv["stages"]:
+        fail(f"{name} rank {r}: the prove did not take the sharded hot path")
+    for n, g, w, ok in rows:
+        if not ok:
+            fail(f"{name} rank {r}: {n} {g} differ from the model's {w}")
 
 
 # the proves of the prove-large phase: prove_v1 options on top of the defaults
@@ -2325,10 +2447,11 @@ def main() -> None:
                 k["launches_prove_large"] = state["launches_large"][name]
             if "launches_sharded" in state and name in K1_K4:
                 # K1-K4 on every rank of every world of the sharded phase: over
-                # one sharded NTT each way, the sharded root and the sharded prove
+                # one sharded NTT each way, the sharded root, the commitments-sharded
+                # prove, the fully sharded prove and the north star (one world)
                 k["launches_sharded"] = {
-                    world: [{"ntt": {w: c[name] for w, c in r["ntt"].items()}, "root": r["root"][name],
-                             "prove": r["prove"][name]} for r in ranks]
+                    world: [{"ntt": {w: c[name] for w, c in r["ntt"].items()},
+                             **{key: r[key][name] for key in r if key != "ntt"}} for r in ranks]
                     for world, ranks in state["launches_sharded"].items()}
         kernels.append(k)
     log(f"total {time.time() - t_start:.1f} s")

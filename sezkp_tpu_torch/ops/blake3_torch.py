@@ -395,6 +395,23 @@ def _as_index(x, dev) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, dtype=np.int64), device=dev)
 
 
+def _path_planes_from_leaf_cvs(cur: torch.Tensor, cur_idx: torch.Tensor, chunk_log2: int, rows=None):
+    """`_paths_from_leaf_cvs` on the device: (the sibling nodes int32
+    [chunk_log2, 8, R] or None when chunk_log2 is 0, the chunk roots' CV
+    planes [8, K])."""
+    k = cur_idx.shape[0]
+    base = torch.arange(k, device=cur.device) if rows is None else rows
+    paths: List[torch.Tensor] = []
+    m = 1 << chunk_log2
+    while m > 1:
+        sib = base * m + (cur_idx ^ 1)
+        paths.append(cur[:, sib])  # [8, R]
+        cur = parent_level_planes(cur)
+        cur_idx = cur_idx >> 1
+        m >>= 1
+    return (torch.stack(paths, dim=0) if paths else None), cur
+
+
 def _paths_from_leaf_cvs(cur: torch.Tensor, cur_idx: torch.Tensor, chunk_log2: int, rows=None):
     """cur: int32 [8, K * chunk] leaf CVs of K chunks side by side; cur_idx:
     int64 [R] index of the opened leaf inside chunk rows[R] (default: one
@@ -403,17 +420,9 @@ def _paths_from_leaf_cvs(cur: torch.Tensor, cur_idx: torch.Tensor, chunk_log2: i
     sibling nodes gathered on the way.
     Returns (paths uint8 [R, chunk_log2, 32], chunk roots uint8 [K, 32])."""
     k = cur_idx.shape[0]
-    base = torch.arange(k, device=cur.device) if rows is None else rows
-    paths: List[torch.Tensor] = []
-    m = 1 << chunk_log2
-    while m > 1:
-        sib = base * m + (cur_idx ^ 1)
-        paths.append(cur[:, sib])  # [8, K]
-        cur = parent_level_planes(cur)
-        cur_idx = cur_idx >> 1
-        m >>= 1
-    if paths:
-        p = torch.stack(paths, dim=0).cpu().numpy()  # [L, 8, K]
+    planes, cur = _path_planes_from_leaf_cvs(cur, cur_idx, chunk_log2, rows)
+    if planes is not None:
+        p = planes.cpu().numpy()  # [L, 8, R]
         rows = np.ascontiguousarray(p.transpose(2, 0, 1)).astype("<u4", copy=False)
         paths8 = rows.view(np.uint8).reshape(k, chunk_log2, 32)
     else:

@@ -19,8 +19,10 @@ the host in canonical label order, so every rank's proof bytes equal the
 single-card prover's. Openings recompute the target chunk on the host
 (O(chunk) work per query), the same schedule as StreamingColumnEngine.
 
-The fully sharded prover (composition, DEEP coset LDE and FRI across the
-ranks: ``ShardedProverEngine``, ``ShardedPipeline``) is not ported yet.
+``ShardedProverEngine`` adds the rest of the hot path across the ranks
+(composition, DEEP coset LDE and FRI: prove_sharded.ShardedPipeline), which
+prove_v1 takes through its ``deep_lde_fri``; ``prove_v1_sharded`` builds it
+by default.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..stark.v1.merkle import MerkleTree, hash_field_leaves_labeled
 from ..stark.v1.openings import _label_prefix
 from ..stark.v1.proof import ColumnRoot, Opening
 from .mesh import Mesh, all_gather_tiled, make_global
+from .prove_sharded import TOPS_MIN_LOG2, check_world, raw_shard_args
 
 
 class ShardedColumnEngine:
@@ -58,6 +61,15 @@ class ShardedColumnEngine:
         self.rowwise = None  # which build ran: True row-wise, False column groups
         self._croots: Dict[str, np.ndarray] = {}
         self._outer: Dict[str, MerkleTree] = {}
+        self._raw_args = None
+
+    def raw_args(self):
+        """This rank's raw inputs of the column derivation, uploaded once a
+        prove: the row-wise commitments and the sharded pipeline's phase 1
+        read the same RawShard."""
+        if self._raw_args is None:
+            self._raw_args = raw_shard_args(self.mesh, self.mesh.size, self.blocks)
+        return self._raw_args
 
     def build_roots(self) -> List[ColumnRoot]:
         if not self._outer:
@@ -98,10 +110,8 @@ class ShardedColumnEngine:
     def _build_rowwise(self) -> None:
         """Row-sharded commit: derive + hash every column's local rows on the
         device from the raw logs; no host [C, n] matrix."""
-        from .prove_sharded import raw_shard_args
-
         self.rowwise = True
-        cols = raw_shard_args(self.mesh, self.mesh.size, self.blocks).derive()  # [C, n/D]
+        cols = self.raw_args().derive()  # [C, n/D]
         roots = BT.columns_commit_roots_scan(
             cols, [_label_prefix(lb) for lb in self.labels], self.chunk_log2
         )  # [C, 8, n/D >> chunk_log2]
@@ -131,27 +141,56 @@ class ShardedColumnEngine:
         )
 
 
-def prove_v1_sharded(blocks, manifest_root: bytes, mesh: Mesh,
-                     commitments_only: bool = False, timings=None):
-    """v1 proof with the column commitments computed across the ranks of
-    `mesh` (every rank runs the whole prove and gets the same bytes, equal to
-    the single-card `prove_v1`'s); the rest of the prove runs on each rank's
-    device on the host-columns route. `timings`: as prove_v1's.
+class ShardedProverEngine(ShardedColumnEngine):
+    """Column engine + the rest of the hot path across the ranks
+    (composition, DEEP coset LDE, FRI folds and trees); prove_v1 finds
+    `deep_lde_fri` and takes its FRI engine from it. `tops_min_log2`: as
+    ShardedPipeline's."""
 
-    `commitments_only=False`, the fully sharded prover of the JAX package
-    (composition, DEEP coset LDE and FRI across the mesh), is not ported
-    yet (queue A4b of ROADMAP.md) and raises NotImplementedError."""
-    if not commitments_only:
-        raise NotImplementedError(
-            "the fully sharded prover (ShardedProverEngine, ShardedPipeline) is queue A4b of "
-            "ROADMAP.md; pass commitments_only=True"
-        )
+    def __init__(self, tc, mesh: Mesh, chunk_log2: int = params.COL_CHUNK_LOG2,
+                 blocks=None, tops_min_log2: int = TOPS_MIN_LOG2):
+        super().__init__(tc, mesh, chunk_log2, blocks)
+        self.tops_min_log2 = tops_min_log2
+
+    def deep_lde_fri(self, alphas, mask_coeffs, blow_log2: int, shift: int, z: int):
+        from .prove_sharded import ShardedPipeline
+
+        return ShardedPipeline(
+            self.mesh, self.tc, blocks=self.blocks,
+            raw_args=self.raw_args,
+            tops_min_log2=self.tops_min_log2,
+        ).deep_lde_fri(alphas, mask_coeffs, blow_log2, shift, z)
+
+
+def prove_v1_sharded(blocks, manifest_root: bytes, mesh: Mesh,
+                     commitments_only: bool = False, timings=None,
+                     tops_min_log2: int = TOPS_MIN_LOG2):
+    """v1 proof across the ranks of `mesh`; every rank runs the whole prove
+    and gets the same bytes, equal to the single-card `prove_v1`'s.
+
+    By default the fully sharded prover: column commitments, AIR
+    composition, the DEEP coset LDE (four-step NTTs with one all-to-all
+    each) and every device FRI fold and layer tree run across the ranks
+    (ShardedProverEngine). It needs a power-of-two world with D * ln2 | n
+    and raises ValueError otherwise, before any collective.
+    `commitments_only=True` shards only the column commitments (any world);
+    the rest of the prove then runs on each rank's device on the
+    host-columns route. `timings`: as prove_v1's (stages `sharded_phase1`,
+    `sharded_fri_commit`, `sharded_open` in the full mode).
+    `tops_min_log2`: LDE size (log2) from which the sharded subtrees keep
+    only their levels from the 2^11-leaf chunk roots up."""
     from ..stark.v1.columns import TraceColumns
     from ..stark.v1.prover import prove_v1
 
+    n = sum(b.n_steps for b in blocks)
+    if not commitments_only:
+        check_world(mesh.size, n.bit_length() - 1, params.BLOWUP.bit_length() - 1)
     t0 = time.perf_counter()
     tc = TraceColumns.build(blocks)
     if timings is not None:
         timings["host_columns"] = time.perf_counter() - t0
-    eng = ShardedColumnEngine(tc, mesh, blocks=blocks)
+    if commitments_only:
+        eng = ShardedColumnEngine(tc, mesh, blocks=blocks)
+    else:
+        eng = ShardedProverEngine(tc, mesh, blocks=blocks, tops_min_log2=tops_min_log2)
     return prove_v1(blocks, manifest_root, mesh.device, engine=eng, tc=tc, timings=timings)

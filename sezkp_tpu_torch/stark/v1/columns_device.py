@@ -446,28 +446,40 @@ def compose_rows_core(cols, tau: int, a, mc, xs, head_next, mv_next):
     return acc
 
 
-def _compose_scan(cols, tau, a, mc, xs, seg_log2: int) -> torch.Tensor:
-    """Composition slab by slab (2^seg_log2 rows each): bounds the [tau, m]
-    temporaries next to the resident column matrix; same output as one pass
-    over all rows. The next-row slab of the last segment wraps to row 0."""
+def compose_slabs(cols, tau: int, a, mc, xs, mv_after, head_after, seg_log2: Optional[int] = None):
+    """Base composition + ZK masks of the rows of a [C, m] column slab,
+    2^seg_log2 rows at a time (all at once when None), which bounds the
+    [tau, seg] temporaries; same output either way. A row's next-row values
+    are the slab's next column, and for the last row mv_after / head_after
+    ([tau, 1]): the slab's first column where the trace wraps, the next
+    rank's first column in a sharded prove."""
     n = cols.shape[1]
-    seg = 1 << seg_log2
-    assert n % seg == 0 and seg >= 2
+    seg = n if seg_log2 is None else min(n, 1 << seg_log2)
+    assert n % seg == 0
     out = torch.empty(n, dtype=torch.int64, device=cols.device)
     h0, m0 = 3 + 3 * tau, 3  # head and mv rows in all_labels order
     for s in range(0, n, seg):
-        nstart = (s + seg) % n
+        e = s + seg
 
-        def next_slab(base):
-            return torch.cat(
-                [cols[base : base + tau, s + 1 : s + seg],
-                 cols[base : base + tau, nstart : nstart + 1]], dim=1)
+        def next_slab(base, after):
+            last = cols[base : base + tau, e : e + 1] if e < n else after
+            return torch.cat([cols[base : base + tau, s + 1 : e], last], dim=1)
 
-        out[s : s + seg] = compose_rows_core(
-            cols[:, s : s + seg], tau, a, mc, xs[s : s + seg],
-            next_slab(h0), next_slab(m0),
-        )
+        out[s:e] = compose_rows_core(
+            cols[:, s:e], tau, a, mc, xs[s:e], next_slab(h0, head_after), next_slab(m0, mv_after))
     return out
+
+
+def compose_args(alphas: Alphas, mask_coeffs, device):
+    """The alphas (int64 [11], compose_rows_core's order) and the mask
+    coefficients (int64 [n_masks, mask_deg]) on `device`."""
+    a = FT.pack(np.array([
+        alphas.bool_flag, alphas.mv_domain, alphas.head_update,
+        alphas.head_bits_bool, alphas.head_reconstruct, alphas.slack_bits_bool,
+        alphas.slack_reconstruct, alphas.sym_bits_bool, alphas.sym_reconstruct,
+        alphas.boundary_first, alphas.boundary_last,
+    ], dtype=np.uint64), device)
+    return a, FT.pack(np.array(mask_coeffs, dtype=np.uint64), device)
 
 
 def compose_device(dc: DeviceColumns, alphas: Alphas, mask_coeffs,
@@ -476,21 +488,10 @@ def compose_device(dc: DeviceColumns, alphas: Alphas, mask_coeffs,
 
     Bit-identical to air.compose_all_rows + masking.eval_masks_sum_at_points.
     From 2^scan_min_log2 rows up it runs slab by slab (same output)."""
-    a = FT.pack(np.array([
-        alphas.bool_flag, alphas.mv_domain, alphas.head_update,
-        alphas.head_bits_bool, alphas.head_reconstruct, alphas.slack_bits_bool,
-        alphas.slack_reconstruct, alphas.sym_bits_bool, alphas.sym_reconstruct,
-        alphas.boundary_first, alphas.boundary_last,
-    ], dtype=np.uint64), dc.device)
-    mc = FT.pack(np.array(mask_coeffs, dtype=np.uint64), dc.device)
+    a, mc = compose_args(alphas, mask_coeffs, dc.device)
     n_log2 = dc.n.bit_length() - 1
     xs = _w_base_pows_device(n_log2, dc.device)
     cols, tau = dc.planes, dc.tau
-    if n_log2 >= scan_min_log2 and n_log2 >= 2:
-        return _compose_scan(cols, tau, a, mc, xs, min(COMPOSE_SEG_LOG2, n_log2 - 1))
+    seg_log2 = min(COMPOSE_SEG_LOG2, n_log2 - 1) if n_log2 >= scan_min_log2 and n_log2 >= 2 else None
     h0, m0 = 3 + 3 * tau, 3
-    return compose_rows_core(
-        cols, tau, a, mc, xs,
-        torch.roll(cols[h0 : h0 + tau], -1, dims=1),
-        torch.roll(cols[m0 : m0 + tau], -1, dims=1),
-    )
+    return compose_slabs(cols, tau, a, mc, xs, cols[m0 : m0 + tau, :1], cols[h0 : h0 + tau, :1], seg_log2)

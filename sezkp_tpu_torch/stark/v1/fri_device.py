@@ -104,6 +104,47 @@ def _fold(cur: torch.Tensor, beta: int, seg_log2: int) -> torch.Tensor:
     return out
 
 
+def _plan(n_log2: int, fri_rows: List[int], plan_value, plan_path) -> list:
+    """Per query of a 2^n_log2 domain: its positions and, per layer, the value
+    and path references (idx, then its pair idx ^ half) that plan_* return."""
+    plans = []
+    for idx0 in fri_rows:
+        positions = []
+        layer_plan = []
+        idx = idx0
+        layer_len = 1 << n_log2
+        for l in range(n_log2):
+            positions.append(idx)
+            half = layer_len // 2
+            j = idx ^ half
+            layer_plan.append(
+                (
+                    plan_value(l, idx),
+                    plan_path(l, layer_len, idx),
+                    plan_value(l, j),
+                    plan_path(l, layer_len, j),
+                )
+            )
+            idx = idx % half
+            layer_len = half
+        positions.append(idx)
+        plans.append((positions, layer_plan))
+    return plans
+
+
+def _assemble(plans: list, value_bytes, path_bytes) -> List[FriQuery]:
+    return [
+        FriQuery(
+            positions=positions,
+            pairs=[
+                (value_bytes(vi), path_bytes(pi), value_bytes(vj), path_bytes(pj))
+                for vi, pi, vj, pj in layer_plan
+            ],
+        )
+        for positions, layer_plan in plans
+    ]
+
+
 class DeviceFri:
     """FRI engine with device-resident layers.
 
@@ -206,46 +247,6 @@ class DeviceFri:
 
     # ------------------------------ openings --------------------------------
 
-    def _plan(self, fri_rows: List[int], plan_value, plan_path) -> list:
-        """Per query: its positions and, per layer, the value and path
-        references (idx, then its pair idx ^ half) that plan_* return."""
-        plans = []
-        for idx0 in fri_rows:
-            positions = []
-            layer_plan = []
-            idx = idx0
-            layer_len = self.n
-            for l in range(self.n_log2):
-                positions.append(idx)
-                half = layer_len // 2
-                j = idx ^ half
-                layer_plan.append(
-                    (
-                        plan_value(l, idx),
-                        plan_path(l, layer_len, idx),
-                        plan_value(l, j),
-                        plan_path(l, layer_len, j),
-                    )
-                )
-                idx = idx % half
-                layer_len = half
-            positions.append(idx)
-            plans.append((positions, layer_plan))
-        return plans
-
-    @staticmethod
-    def _assemble(plans: list, value_bytes, path_bytes) -> List[FriQuery]:
-        return [
-            FriQuery(
-                positions=positions,
-                pairs=[
-                    (value_bytes(vi), path_bytes(pi), value_bytes(vj), path_bytes(pj))
-                    for vi, pi, vj, pj in layer_plan
-                ],
-            )
-            for positions, layer_plan in plans
-        ]
-
     def _host_value(self, layer: int, idx: int) -> bytes:
         return int(self._host_layers[layer][idx]).to_bytes(8, "little")
 
@@ -289,7 +290,7 @@ class DeviceFri:
                 lev += 1
             return refs
 
-        plans = self._plan(fri_rows, plan_value, plan_path)
+        plans = _plan(self.n_log2, fri_rows, plan_value, plan_path)
 
         # queue every device gather, then one pull per kind
         dev = self._vals[0].device
@@ -327,7 +328,7 @@ class DeviceFri:
                 return self._host_trees[layer].open(target)
             return [nodes[node_off[key] + i].tobytes() for key, i in refs]
 
-        return self._assemble(plans, value_bytes, path_bytes)
+        return _assemble(plans, value_bytes, path_bytes)
 
     def _open_queries_chunked(self, fri_rows: List[int]) -> List[FriQuery]:
         """Chunked-tree openings: each opened leaf of a device layer is a
@@ -353,7 +354,7 @@ class DeviceFri:
                 return ("hosttree", layer, target)
             return ("req", plan_req(layer, target), layer, target)
 
-        plans = self._plan(fri_rows, plan_value, plan_path)
+        plans = _plan(self.n_log2, fri_rows, plan_value, plan_path)
 
         # distinct chunks in (layer, start) order: one gather a layer
         chunk_row: Dict[tuple, int] = {}  # (layer, chunk start) -> row of `chunks`
@@ -390,4 +391,4 @@ class DeviceFri:
                 t >>= 1
             return out
 
-        return self._assemble(plans, value_bytes, path_bytes)
+        return _assemble(plans, value_bytes, path_bytes)

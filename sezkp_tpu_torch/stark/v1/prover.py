@@ -172,7 +172,11 @@ def prove_v1(
 
     `engine` injects a column-commitment engine (the sharded one,
     parallel/engine.py) and takes the host-columns route; `tc` optionally
-    supplies the host TraceColumns alongside it."""
+    supplies the host TraceColumns alongside it. An engine with
+    `deep_lde_fri` (parallel/engine.ShardedProverEngine) also computes the
+    composition, the LDE and FRI (stages `sharded_phase1`,
+    `sharded_fri_commit`, `sharded_open`); the host composition and the LDE
+    are then skipped."""
     device = resolve_device(device)
     n = sum(b.n_steps for b in blocks)
     tau = blocks[0].tau if blocks else 0
@@ -224,7 +228,13 @@ def prove_v1(
     # ---- base composition + ZK masks, then the DEEP coset LDE ----
     fri_eng = None
     lde_vals = None
-    if dc is not None:
+    sharded = hasattr(engine, "deep_lde_fri")
+    if sharded:
+        # the sharded hot path: composition, LDE and FRI across the ranks of
+        # the engine's world (parallel/prove_sharded.py)
+        fri_eng = engine.deep_lde_fri(alphas, mask_coeffs, blow_log2, shift, z)
+        stages.mark("sharded_phase1")
+    elif dc is not None:
         base_dev = compose_device(dc, alphas, mask_coeffs, compose_scan_min_log2)
         _release_planes_if_large(dc, release_planes_bytes)
         stages.mark("device_compose")
@@ -245,7 +255,8 @@ def prove_v1(
             if lde_k_log2 >= fri_min_log2:
                 fri_eng = DeviceFri(FT.pack(lde_vals, device),
                                     chunked_min_log2=fri_chunked_min_log2)
-    stages.mark("lde")
+    if not sharded:
+        stages.mark("lde")
 
     # ---- FRI commit: bind root0, betas, fold + bind roots ----
     if fri_eng is not None:
@@ -261,7 +272,10 @@ def prove_v1(
         roots, layers, betas = fri_commit(tr, lde_vals)
         trees = [layer_tree(layer) for layer in layers]
         fri_final_value_le = G.to_le_bytes(layers[-1][0]).tobytes()
-    stages.mark("fri_commit_chunked" if fri_eng is not None and fri_eng.chunked else "fri_commit")
+    if sharded:
+        stages.mark("sharded_fri_commit")
+    else:
+        stages.mark("fri_commit_chunked" if fri_eng is not None and fri_eng.chunked else "fri_commit")
 
     # ---- AIR query openings (batched: one device pass for all paths) --
     rows = params.derive_queries(tr, n, params.NUM_QUERIES)
@@ -308,7 +322,7 @@ def prove_v1(
         fri_queries: List[FriQuery] = fri_eng.open_queries(fri_rows)
     else:
         fri_queries = [fri_open_query(layers, trees, idx0) for idx0 in fri_rows]
-    stages.mark("fri_openings")
+    stages.mark("sharded_open" if sharded else "fri_openings")
 
     return ProofV1(
         domain_n=lde_n,

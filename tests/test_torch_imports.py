@@ -69,8 +69,34 @@ def test_port_files_found():
         "sezkp_tpu_torch/parallel/ingest.py",
         "sezkp_tpu_torch/parallel/engine.py",
         "sezkp_tpu_torch/parallel/prove_sharded.py",
+        "sezkp_tpu_torch/parallel/traffic.py",
     ):
         assert must in rel
+
+
+# the JAX ops modules whose counterparts in the port have other names
+OPS_COUNTERPARTS = {
+    "ops/blake3_jax.py": "ops/blake3_torch.py",
+    "ops/blake3_pallas.py": "ops/blake3_torch.py",
+    "ops/goldilocks_jax.py": "ops/goldilocks_torch.py",
+    "ops/ntt_jax.py": "ops/ntt_torch.py",
+    "ops/ntt_mxu.py": "ops/ntt_torch.py",
+    "ops/ntt_pallas.py": "ops/ntt_torch.py",
+}
+
+
+def test_every_module_of_the_jax_package_has_its_counterpart():
+    """Every .py of sezkp_tpu/ has a file of the same path in the port, or
+    (the ops modules) its named counterpart."""
+    ref = os.path.join(ROOT, "sezkp_tpu")
+    missing = []
+    for d, _dirs, names in os.walk(ref):
+        for name in names:
+            if name.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, name), ref)
+                if not os.path.exists(os.path.join(PKG, OPS_COUNTERPARTS.get(rel, rel))):
+                    missing.append(rel)
+    assert not missing, f"modules of sezkp_tpu/ without a counterpart in the port: {missing}"
 
 
 def test_no_import_of_jax_or_reference_package():

@@ -226,11 +226,31 @@ def test_cli_two_ranks_write_the_jax_cli_file(run):
 
 
 def test_fully_sharded_prove_is_not_ported_yet():
+    """Once the check that the fully sharded prover was not ported; it is now
+    prove_v1_sharded's default (tests/test_torch_parallel_full.py holds it
+    to the JAX prove in worlds of 1, 2 and 4 ranks). Here, in a world of one
+    without a process group: the default call takes the sharded stages, not
+    the host composition, and gives the bytes of the port's prove_v1."""
+    import torch
+
+    from sezkp_tpu_torch import convert
     from sezkp_tpu_torch.parallel.engine import prove_v1_sharded
     from sezkp_tpu_torch.parallel.mesh import make_mesh
+    from sezkp_tpu_torch.stark.v1.proof import encode_proof
+    from sezkp_tpu_torch.stark.v1.prover import prove_v1
+    from test_stark_v1 import demo_blocks
 
-    with pytest.raises(NotImplementedError, match="A4b"):
-        prove_v1_sharded([], MANIFEST, make_mesh(device="cpu"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        blocks = convert.blocks_from_reference(demo_blocks(2, 1024, tau=1))
+        timings = {}
+        got = encode_proof(prove_v1_sharded(blocks, MANIFEST, make_mesh(device="cpu"), timings=timings))
+        assert encode_proof(prove_v1(blocks, MANIFEST, "cpu")) == got
+    finally:
+        torch.set_num_threads(threads)
+    assert {"sharded_phase1", "sharded_fri_commit", "sharded_open"} <= set(timings)
+    assert "host_compose" not in timings
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--rank"]:
