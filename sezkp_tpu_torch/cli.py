@@ -32,14 +32,14 @@ def cmd_simulate(args) -> int:
     from .core import io as core_io
     from .trace.generator import generate_trace
     from .trace.partition import partition_trace
-    from .utils.tracing import span
+    from .utils.tracing import command
 
     if args.b > args.t:
         log.error("number of blocks b (%d) cannot exceed trace length T (%d)", args.b, args.t)
         return 1
     log.info("generating synthetic trace t=%d tau=%d", args.t, args.tau)
     ext = args.out_blocks.rsplit(".", 1)[-1].lower()
-    with span("simulate", t=args.t, b=args.b, tau=args.tau):
+    with command("simulate", t=args.t, b=args.b, tau=args.tau):
         if ext in ("cbor", "jsonl", "ndjson"):
             # streaming: generate + partition + write in bounded chunks
             # (RSS stays ~chunk-size; bytes identical to the resident path)
@@ -107,7 +107,7 @@ def cmd_prove(args) -> int:
     from .core.prover import StreamingProver
     from .ops._kernels import resolve_device
     from .utils.config import ENV_KEYS
-    from .utils.tracing import span
+    from .utils.tracing import command
 
     # stark and fold run on the card unless --device says otherwise, and raise
     # where there is none; stark-v0 is host code and takes no device
@@ -129,7 +129,7 @@ def cmd_prove(args) -> int:
     backend = _backend_for(args.backend)
     sp = StreamingProver(backend)
 
-    with span("prove", backend=args.backend, stream=args.stream):
+    with command("prove", backend=args.backend, stream=args.stream):
         if args.backend == "fold" and args.stream:
             stream_path = os.path.splitext(args.out)[0] + ".cborseq"
             os.environ[ENV_KEYS["PROOF_STREAM_PATH"]] = stream_path
@@ -163,9 +163,9 @@ def cmd_verify(args) -> int:
 
     backend = _backend_for(args.backend)
     sp = StreamingProver(backend)
-    from .utils.tracing import span
+    from .utils.tracing import command
 
-    with span("verify", backend=args.backend):
+    with command("verify", backend=args.backend):
         if args.backend == "fold":
             it = core_io.stream_block_summaries_auto(args.blocks)
             sp.verify_stream_iter(artifact, it, man.root)

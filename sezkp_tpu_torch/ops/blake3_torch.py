@@ -39,7 +39,7 @@ padding and word transposition on the device, the kernel, one download.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -419,15 +419,32 @@ def _paths_from_leaf_cvs(cur: torch.Tensor, cur_idx: torch.Tensor, chunk_log2: i
     by level (chunks are aligned, so no sibling pair crosses one) and the
     sibling nodes gathered on the way.
     Returns (paths uint8 [R, chunk_log2, 32], chunk roots uint8 [K, 32])."""
-    k = cur_idx.shape[0]
     planes, cur = _path_planes_from_leaf_cvs(cur, cur_idx, chunk_log2, rows)
-    if planes is not None:
-        p = planes.cpu().numpy()  # [L, 8, R]
-        rows = np.ascontiguousarray(p.transpose(2, 0, 1)).astype("<u4", copy=False)
-        paths8 = rows.view(np.uint8).reshape(k, chunk_log2, 32)
-    else:
-        paths8 = np.zeros((k, 0, 32), np.uint8)
-    return paths8, cv_planes_to_bytes(cur)
+    return path_planes_to_bytes(planes, cur_idx.shape[0], chunk_log2), cv_planes_to_bytes(cur)
+
+
+def path_planes_to_bytes(planes: Optional[torch.Tensor], k: int, chunk_log2: int) -> np.ndarray:
+    """Sibling nodes int32 [chunk_log2, 8, K] (None when chunk_log2 is 0) ->
+    the paths uint8 [K, chunk_log2, 32]: one device->host copy."""
+    if planes is None:
+        return np.zeros((k, 0, 32), np.uint8)
+    p = planes.cpu().numpy()  # [L, 8, K]
+    rows = np.ascontiguousarray(p.transpose(2, 0, 1)).astype("<u4", copy=False)
+    return rows.view(np.uint8).reshape(k, chunk_log2, 32)
+
+
+def chunk_path_planes(cvs: torch.Tensor, cols: torch.Tensor, chunk_starts: torch.Tensor,
+                      idx_in_chunk: torch.Tensor, chunk_log2: int):
+    """chunk_paths_device on the device, from int64 [K] index tensors there:
+    (the sibling nodes int32 [chunk_log2, 8, K] or None, the chunk roots'
+    CV planes [8, K]). Launches only: nothing comes to the host."""
+    n = cvs.shape[2]
+    # gather the K chunks' leaves: [8, K * chunk]
+    offs = (cols * (8 * n) + chunk_starts)[:, None] \
+        + torch.arange(1 << chunk_log2, device=cvs.device)[None, :]
+    flat = cvs.reshape(-1)
+    cur = torch.stack([flat[(offs + w * n).reshape(-1)] for w in range(8)], dim=0)
+    return _path_planes_from_leaf_cvs(cur, idx_in_chunk, chunk_log2)
 
 
 def chunk_paths_device(cvs: torch.Tensor, cols, chunk_starts, idx_in_chunk, chunk_log2: int):
@@ -439,17 +456,12 @@ def chunk_paths_device(cvs: torch.Tensor, cols, chunk_starts, idx_in_chunk, chun
     sibling node gathered on the way; only the paths travel back.
     Returns (paths uint8 [K, chunk_log2, 32], roots uint8 [K, 32])."""
     k = len(chunk_starts)
-    chunk = 1 << chunk_log2
     if k == 0:
         return np.zeros((0, chunk_log2, 32), np.uint8), np.zeros((0, 32), np.uint8)
     dev = cvs.device
-    n = cvs.shape[2]
-    # gather the K chunks' leaves: [8, K * chunk]
-    offs = (_as_index(cols, dev) * (8 * n) + _as_index(chunk_starts, dev))[:, None] \
-        + torch.arange(chunk, device=dev)[None, :]
-    flat = cvs.reshape(-1)
-    cur = torch.stack([flat[(offs + w * n).reshape(-1)] for w in range(8)], dim=0)
-    return _paths_from_leaf_cvs(cur, _as_index(idx_in_chunk, dev), chunk_log2)
+    planes, roots = chunk_path_planes(cvs, _as_index(cols, dev), _as_index(chunk_starts, dev),
+                                      _as_index(idx_in_chunk, dev), chunk_log2)
+    return path_planes_to_bytes(planes, k, chunk_log2), cv_planes_to_bytes(roots)
 
 
 def _chunk_paths_from_values(vals: torch.Tensor, idx_in_chunk, prefixes: Sequence[bytes],

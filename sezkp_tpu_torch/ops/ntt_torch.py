@@ -83,6 +83,7 @@ from . import _kernels
 from . import goldilocks as G
 from . import goldilocks_torch as FT
 from . import ntt as ntt_host
+from ..utils.tracing import LAUNCH, WAIT, span
 
 MIN_LOG2 = 14  # below this the four-step small-n form (K5); from here up the multi-step form
 
@@ -809,23 +810,32 @@ def scale_pad(coeffs: torch.Tensor, shift_pows: torch.Tensor, lde_n: int) -> tor
     return out
 
 
-def deep_divide(y: torch.Tensor, z: int, xs: torch.Tensor) -> torch.Tensor:
-    denom = FT.sub(xs, FT.scalar(z, xs))
+def deep_divide(y: torch.Tensor, z: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
+    """y / (xs - z), z a 0-d field tensor on xs's device (no upload here)."""
+    denom = FT.sub(xs, z)
     return FT.mul(y, FT.pow_p_minus_2(denom))
 
 
 def deep_coset_lde(base: torch.Tensor, blow_log2: int, shift: int, z: int) -> torch.Tensor:
     """y[i] = LDE(base)(x_i) / (x_i - z) over the coset shift*<w> of size
     n*2^blow: INTT -> shift-scale + zero-pad -> NTT -> divide. Takes and
-    returns device-resident field tensors (no host round trip)."""
+    returns device-resident field tensors (no host round trip). While a
+    prove is recorded the four parts are spans that synchronise at their
+    ends, so that each is charged its device time."""
     n_base = int(base.shape[0])
     base_log2 = n_base.bit_length() - 1
     assert 1 << base_log2 == n_base
     lde_log2 = base_log2 + blow_log2
-    coeffs = inverse_ntt(base)
-    shift_pows, xs = _deep_lde_tables(base_log2, lde_log2, shift, base.device)
-    y = forward_ntt(scale_pad(coeffs, shift_pows, 1 << lde_log2))
-    return deep_divide(y, z, xs)
+    with span("lde.intt", LAUNCH, sync=True):
+        coeffs = inverse_ntt(base)
+    # the tables are cached after the first prove; z goes up (which synchronises)
+    with span("lde.tables", WAIT, sync=True):
+        shift_pows, xs = _deep_lde_tables(base_log2, lde_log2, shift, base.device)
+        z = FT.scalar(z, xs)
+    with span("lde.coset_ntt", LAUNCH, sync=True):
+        y = forward_ntt(scale_pad(coeffs, shift_pows, 1 << lde_log2))
+    with span("lde.divide", LAUNCH, sync=True):
+        return deep_divide(y, z, xs)
 
 
 def deep_coset_lde_u64(base_evals: np.ndarray, blow_log2: int, shift: int, z: int, device=None):

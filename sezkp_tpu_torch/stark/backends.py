@@ -15,12 +15,22 @@ from typing import Sequence
 from ..core.artifact import BackendKind, ProofArtifact
 from ..core.types import BlockSummary
 from ..fold.backend import FoldAgg, FoldBackend
+from ..utils import tracing
 from .v0 import StarkIOP
 from .v1 import proof as proof_mod
 from .v1.prover import prove_v1
 from .v1.verify import verify_v1
 
 __all__ = ["FoldAgg", "FoldBackend", "StarkIOP", "StarkV1"]
+
+
+def _encode(proof, timings) -> bytes:
+    """The proof's bincode bytes, timed as the prove's last stage (host
+    code: it queues no device work, so its edge needs no sync)."""
+    stages = tracing.Stages(timings, None)
+    out = proof_mod.encode_proof(proof)
+    stages.mark("encode", tracing.HOST)
+    return out
 
 
 class StarkV1:
@@ -33,12 +43,16 @@ class StarkV1:
         (`cv_budget_bytes`, `release_planes_bytes`, `compose_scan_min_log2`),
         the host-columns route's thresholds, the LDE domain from which FRI
         takes its chunked tops-only mode (`fri_chunked_min_log2`), and
-        `timings`."""
-        proof = prove_v1(blocks, manifest_root, device, **options)
+        `timings`, which also receives `encode`, the seconds of the bincode
+        encoding, after prove_v1's stages."""
+        timings = options.get("timings")
+        with tracing.proving(timings):
+            proof = prove_v1(blocks, manifest_root, device, **options)
+            proof_bytes = _encode(proof, timings)
         return ProofArtifact(
             backend=BackendKind.STARK,
             manifest_root=manifest_root,
-            proof_bytes=proof_mod.encode_proof(proof),
+            proof_bytes=proof_bytes,
             meta={"proto": "stark-v1", "domain_n": proof.domain_n, "tau": proof.tau},
         )
 
@@ -49,11 +63,14 @@ class StarkV1:
         """The same proof bytes from the O(chunk)-memory column commitments
         (prove_v1 with streaming=True); `options` as for `prove`
         (`fri_chunked_min_log2` among them)."""
-        proof = prove_v1(blocks, manifest_root, device, streaming=True, **options)
+        timings = options.get("timings")
+        with tracing.proving(timings):
+            proof = prove_v1(blocks, manifest_root, device, streaming=True, **options)
+            proof_bytes = _encode(proof, timings)
         return ProofArtifact(
             backend=BackendKind.STARK,
             manifest_root=manifest_root,
-            proof_bytes=proof_mod.encode_proof(proof),
+            proof_bytes=proof_bytes,
             meta={
                 "proto": "stark-v1",
                 "mode": "streaming",

@@ -26,6 +26,7 @@ from ...ops import goldilocks as G
 from ...ops import goldilocks_torch as FT
 from ...ops import ntt as ntt_host
 from ...ops import ntt_torch
+from ...utils.tracing import LAUNCH, WAIT, span
 from . import params
 from .air import Alphas
 from .columns import HEAD_BITS, SYM_BITS, all_labels
@@ -267,32 +268,33 @@ class DeviceColumns:
     `device=None` means the CUDA card; the CPU only when asked."""
 
     def __init__(self, blocks: Sequence, device=None):
-        h = _host_inputs(blocks)
-        n, tau = h["n"], h["tau"]
-        # pack (tape_mv, write_flag, write_sym) into one u8 plane when the
-        # symbol fits 4 bits (always for the reference generator; larger
-        # alphabets fall back to the unpacked upload)
-        packed = (
-            n > 0
-            and int(h["wsym"].max(initial=0)) <= 15
-            and int(h["tape_mv"].min(initial=0)) >= -1
-            and int(h["tape_mv"].max(initial=0)) <= 1
-        )
-        if packed:
-            logs = (np.ascontiguousarray(
-                pack_logs(h["tape_mv"].T, h["wflag"].T, h["wsym"].T)),)
-        else:
-            logs = (
-                np.ascontiguousarray(h["tape_mv"].T),
-                np.ascontiguousarray(h["wflag"].astype(np.uint8).T),
-                np.ascontiguousarray(h["wsym"].astype(np.int32).T),
+        with span("device_columns.host_inputs"):
+            h = _host_inputs(blocks)
+            n, tau = h["n"], h["tau"]
+            # pack (tape_mv, write_flag, write_sym) into one u8 plane when the
+            # symbol fits 4 bits (always for the reference generator; larger
+            # alphabets fall back to the unpacked upload)
+            packed = (
+                n > 0
+                and int(h["wsym"].max(initial=0)) <= 15
+                and int(h["tape_mv"].min(initial=0)) >= -1
+                and int(h["tape_mv"].max(initial=0)) <= 1
             )
-        anchor, carry = _cumsum_anchors(h["tape_mv"], n, tau, h["block_start"])
-        self._init_raw(
-            n, tau, packed, h["input_mv"], logs, h["block_of"], h["is_first"],
-            h["is_last"], _block_table(h["win_len"]), _block_table(h["in_off"]),
-            _block_table(h["out_off"]), anchor, carry, device,
-        )
+            if packed:
+                logs = (np.ascontiguousarray(
+                    pack_logs(h["tape_mv"].T, h["wflag"].T, h["wsym"].T)),)
+            else:
+                logs = (
+                    np.ascontiguousarray(h["tape_mv"].T),
+                    np.ascontiguousarray(h["wflag"].astype(np.uint8).T),
+                    np.ascontiguousarray(h["wsym"].astype(np.int32).T),
+                )
+            anchor, carry = _cumsum_anchors(h["tape_mv"], n, tau, h["block_start"])
+            tables = (_block_table(h["win_len"]), _block_table(h["in_off"]),
+                      _block_table(h["out_off"]))
+        with span("device_columns.upload", WAIT):
+            self._init_raw(n, tau, packed, h["input_mv"], logs, h["block_of"], h["is_first"],
+                           h["is_last"], *tables, anchor, carry, device)
 
     @classmethod
     def from_raw(cls, n, tau, packed, input_mv, logs, block_of, is_first, is_last,
@@ -488,10 +490,13 @@ def compose_device(dc: DeviceColumns, alphas: Alphas, mask_coeffs,
 
     Bit-identical to air.compose_all_rows + masking.eval_masks_sum_at_points.
     From 2^scan_min_log2 rows up it runs slab by slab (same output)."""
-    a, mc = compose_args(alphas, mask_coeffs, dc.device)
-    n_log2 = dc.n.bit_length() - 1
-    xs = _w_base_pows_device(n_log2, dc.device)
-    cols, tau = dc.planes, dc.tau
-    seg_log2 = min(COMPOSE_SEG_LOG2, n_log2 - 1) if n_log2 >= scan_min_log2 and n_log2 >= 2 else None
-    h0, m0 = 3 + 3 * tau, 3
-    return compose_slabs(cols, tau, a, mc, xs, cols[m0 : m0 + tau, :1], cols[h0 : h0 + tau, :1], seg_log2)
+    with span("device_compose.args", WAIT):
+        a, mc = compose_args(alphas, mask_coeffs, dc.device)
+        n_log2 = dc.n.bit_length() - 1
+        xs = _w_base_pows_device(n_log2, dc.device)
+    with span("device_compose.rows", LAUNCH):
+        cols, tau = dc.planes, dc.tau
+        seg_log2 = min(COMPOSE_SEG_LOG2, n_log2 - 1) if n_log2 >= scan_min_log2 and n_log2 >= 2 else None
+        h0, m0 = 3 + 3 * tau, 3
+        return compose_slabs(cols, tau, a, mc, xs, cols[m0 : m0 + tau, :1], cols[h0 : h0 + tau, :1],
+                             seg_log2)

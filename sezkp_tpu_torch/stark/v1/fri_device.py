@@ -38,6 +38,7 @@ import torch
 
 from ...ops import blake3_torch as BT
 from ...ops import goldilocks_torch as FT
+from ...utils.tracing import LAUNCH, WAIT, span
 from .proof import FriQuery
 
 # Device handles layers down to this size; smaller tail layers fold on host.
@@ -93,10 +94,10 @@ def _split_top_levels(rows: np.ndarray) -> List[np.ndarray]:
     return out
 
 
-def _fold(cur: torch.Tensor, beta: int, seg_log2: int) -> torch.Tensor:
-    """y[:half] + beta * y[half:], 2^seg_log2 values at a time."""
+def _fold(cur: torch.Tensor, b: torch.Tensor, seg_log2: int) -> torch.Tensor:
+    """y[:half] + b * y[half:], 2^seg_log2 values at a time; b is a 0-d
+    field tensor on cur's device (no upload here)."""
     half = cur.shape[0] // 2
-    b = FT.scalar(beta, cur)
     out = torch.empty(half, dtype=torch.int64, device=cur.device)
     seg = min(1 << seg_log2, half)
     for s in range(0, half, seg):
@@ -183,11 +184,15 @@ class DeviceFri:
         self._host_trees = {}
 
     def commit_layer0(self) -> bytes:
-        if self.chunked:
-            self._tops[0] = _chunk_tops(self._vals[0], self._seg_log2)
-            return BT.cv_planes_to_bytes(self._tops[0][:, -1:])[0].tobytes()
-        self._levels[0] = _tree_levels(self._vals[0])
-        return BT.cv_planes_to_bytes(self._levels[0][-1])[0].tobytes()
+        with span("fri_commit.layer0", LAUNCH):
+            if self.chunked:
+                self._tops[0] = _chunk_tops(self._vals[0], self._seg_log2)
+                root = self._tops[0][:, -1:]
+            else:
+                self._levels[0] = _tree_levels(self._vals[0])
+                root = self._levels[0][-1]
+        with span("fri_commit.pull_root0", WAIT):
+            return BT.cv_planes_to_bytes(root)[0].tobytes()
 
     def commit_rest(self, betas: List[int]) -> List[bytes]:
         from . import fri as host_fri
@@ -195,38 +200,44 @@ class DeviceFri:
         self._dev_layers = max(1, self.n_log2 - self._min_device_layer_log2)
         cur = self._vals[0]
         roots = []
-        for l in range(1, self._dev_layers + 1):
-            cur = _fold(cur, betas[l - 1], self._seg_log2)
-            self._vals[l] = cur
+        # one upload of the device layers' betas (an upload synchronises)
+        with span("fri_commit.betas", WAIT):
+            bs = FT.pack(np.array(betas[: self._dev_layers], dtype=np.uint64), cur.device)
+        with span("fri_commit.fold", LAUNCH):
+            for l in range(1, self._dev_layers + 1):
+                cur = _fold(cur, bs[l - 1], self._seg_log2)
+                self._vals[l] = cur
+                if self.chunked:
+                    self._tops[l] = _chunk_tops(cur, self._seg_log2)
+                else:
+                    self._levels[l] = _tree_levels(cur)
+                    roots.append(self._levels[l][-1])
+        with span("fri_commit.pull_tops", WAIT):
             if self.chunked:
-                self._tops[l] = _chunk_tops(cur, self._seg_log2)
+                curh = self._pull_tops_and_tail(cur)
+                self._roots = [
+                    self._tops_host[l][-1][0].tobytes() for l in range(1, self._dev_layers + 1)
+                ]
             else:
-                self._levels[l] = _tree_levels(cur)
-                roots.append(self._levels[l][-1])
-        if self.chunked:
-            curh = self._pull_tops_and_tail(cur)
-            self._roots = [
-                self._tops_host[l][-1][0].tobytes() for l in range(1, self._dev_layers + 1)
-            ]
-        else:
-            # one pull for the layer roots, one for the tail values
-            self._roots = [
-                r.tobytes() for r in BT.cv_planes_to_bytes(torch.cat(roots, dim=1))
-            ]
-            curh = FT.unpack(cur).copy()
+                # one pull for the layer roots, one for the tail values
+                self._roots = [
+                    r.tobytes() for r in BT.cv_planes_to_bytes(torch.cat(roots, dim=1))
+                ]
+                curh = FT.unpack(cur).copy()
 
         # host tail: fold the remaining small layers from the last device layer
-        self._host_layers = {}
-        self._host_trees = {}
-        layer_idx = self._dev_layers
-        while curh.shape[0] > 1:
-            curh = host_fri.fold(curh, betas[layer_idx])
-            layer_idx += 1
-            tree = host_fri.layer_tree(curh)
-            self._host_layers[layer_idx] = curh
-            self._host_trees[layer_idx] = tree
-            self._roots.append(tree.root())
-        self._final_value = int(curh[0])
+        with span("fri_commit.host_tail"):
+            self._host_layers = {}
+            self._host_trees = {}
+            layer_idx = self._dev_layers
+            while curh.shape[0] > 1:
+                curh = host_fri.fold(curh, betas[layer_idx])
+                layer_idx += 1
+                tree = host_fri.layer_tree(curh)
+                self._host_layers[layer_idx] = curh
+                self._host_trees[layer_idx] = tree
+                self._roots.append(tree.root())
+            self._final_value = int(curh[0])
         return list(self._roots)
 
     def _pull_tops_and_tail(self, tail: torch.Tensor) -> np.ndarray:
@@ -290,30 +301,34 @@ class DeviceFri:
                 lev += 1
             return refs
 
-        plans = _plan(self.n_log2, fri_rows, plan_value, plan_path)
+        with span("fri_openings.plan"):
+            plans = _plan(self.n_log2, fri_rows, plan_value, plan_path)
 
-        # queue every device gather, then one pull per kind
+        # queue every device gather, then one pull per kind; every gather
+        # uploads its positions, which synchronises
         dev = self._vals[0].device
-        node_off: Dict[tuple, int] = {}
-        parts = []
-        off = 0
-        for key, pos in node_reqs.items():
-            layer, lev = key
-            node_off[key] = off
-            off += len(pos)
-            parts.append(self._levels[layer][lev][:, torch.as_tensor(pos, device=dev)])
-        nodes = (
-            BT.cv_planes_to_bytes(torch.cat(parts, dim=1))
-            if parts else np.zeros((0, 32), np.uint8)
-        )
-        val_off: Dict[int, int] = {}
-        vparts = []
-        off = 0
-        for layer, idxs in val_reqs.items():
-            val_off[layer] = off
-            off += len(idxs)
-            vparts.append(self._vals[layer][torch.as_tensor(idxs, device=dev)])
-        vals = FT.unpack(torch.cat(vparts)) if vparts else np.zeros(0, np.uint64)
+        with span("fri_openings.gather", WAIT):
+            node_off: Dict[tuple, int] = {}
+            parts = []
+            off = 0
+            for key, pos in node_reqs.items():
+                layer, lev = key
+                node_off[key] = off
+                off += len(pos)
+                parts.append(self._levels[layer][lev][:, torch.as_tensor(pos, device=dev)])
+            val_off: Dict[int, int] = {}
+            vparts = []
+            off = 0
+            for layer, idxs in val_reqs.items():
+                val_off[layer] = off
+                off += len(idxs)
+                vparts.append(self._vals[layer][torch.as_tensor(idxs, device=dev)])
+        with span("fri_openings.pull", WAIT):
+            nodes = (
+                BT.cv_planes_to_bytes(torch.cat(parts, dim=1))
+                if parts else np.zeros((0, 32), np.uint8)
+            )
+            vals = FT.unpack(torch.cat(vparts)) if vparts else np.zeros(0, np.uint64)
 
         def value_bytes(ref) -> bytes:
             kind, x = ref
@@ -328,7 +343,8 @@ class DeviceFri:
                 return self._host_trees[layer].open(target)
             return [nodes[node_off[key] + i].tobytes() for key, i in refs]
 
-        return _assemble(plans, value_bytes, path_bytes)
+        with span("fri_openings.assemble"):
+            return _assemble(plans, value_bytes, path_bytes)
 
     def _open_queries_chunked(self, fri_rows: List[int]) -> List[FriQuery]:
         """Chunked-tree openings: each opened leaf of a device layer is a
@@ -354,25 +370,28 @@ class DeviceFri:
                 return ("hosttree", layer, target)
             return ("req", plan_req(layer, target), layer, target)
 
-        plans = _plan(self.n_log2, fri_rows, plan_value, plan_path)
-
-        # distinct chunks in (layer, start) order: one gather a layer
-        chunk_row: Dict[tuple, int] = {}  # (layer, chunk start) -> row of `chunks`
-        for layer, idx in sorted(req_seq):
-            chunk_row.setdefault((layer, idx & ~mask), len(chunk_row))
+        with span("fri_openings.plan"):
+            plans = _plan(self.n_log2, fri_rows, plan_value, plan_path)
+            # distinct chunks in (layer, start) order: one gather a layer
+            chunk_row: Dict[tuple, int] = {}  # (layer, chunk start) -> row of `chunks`
+            for layer, idx in sorted(req_seq):
+                chunk_row.setdefault((layer, idx & ~mask), len(chunk_row))
         dev = self._vals[0].device
-        offs = torch.arange(mask + 1, device=dev)[None, :]
-        parts = [
-            self._vals[layer][BT._as_index([s for l, s in chunk_row if l == layer], dev)[:, None] + offs]
-            for layer in sorted({l for l, _ in chunk_row})
-        ]
-        if parts:
-            chunks = torch.cat(parts)  # [K, 2^CHUNK_LOG2]
-            rows = BT._as_index([chunk_row[(layer, idx & ~mask)] for layer, idx in req_seq], dev)
-            idxs = BT._as_index([idx & mask for _, idx in req_seq], dev)
-            cvs = BT.hash_leaves_u64_planes(chunks.reshape(-1), b"")
-            paths8, _ = BT._paths_from_leaf_cvs(cvs, idxs, CHUNK_LOG2, rows=rows)
-            values = FT.unpack(chunks[rows, idxs])
+        # uploads of the chunk starts and indices, gathers, the chunks' trees
+        # and the pull of their paths and values
+        with span("fri_openings.gather", WAIT):
+            offs = torch.arange(mask + 1, device=dev)[None, :]
+            parts = [
+                self._vals[layer][BT._as_index([s for l, s in chunk_row if l == layer], dev)[:, None] + offs]
+                for layer in sorted({l for l, _ in chunk_row})
+            ]
+            if parts:
+                chunks = torch.cat(parts)  # [K, 2^CHUNK_LOG2]
+                rows = BT._as_index([chunk_row[(layer, idx & ~mask)] for layer, idx in req_seq], dev)
+                idxs = BT._as_index([idx & mask for _, idx in req_seq], dev)
+                cvs = BT.hash_leaves_u64_planes(chunks.reshape(-1), b"")
+                paths8, _ = BT._paths_from_leaf_cvs(cvs, idxs, CHUNK_LOG2, rows=rows)
+                values = FT.unpack(chunks[rows, idxs])
 
         def value_bytes(ref) -> bytes:
             if ref[0] == "hostlayer":
@@ -391,4 +410,5 @@ class DeviceFri:
                 t >>= 1
             return out
 
-        return _assemble(plans, value_bytes, path_bytes)
+        with span("fri_openings.assemble"):
+            return _assemble(plans, value_bytes, path_bytes)

@@ -34,6 +34,7 @@ import torch
 from ...ops import blake3_torch as BT
 from ...ops import goldilocks as G
 from ...ops import goldilocks_torch as FT
+from ...utils.tracing import LAUNCH, WAIT, span
 from . import params
 from .columns import all_labels
 from .merkle import ColumnCommit, MerkleTree, hash_field_leaves_labeled
@@ -115,21 +116,28 @@ class ColumnEngine:
     def _build_device(self) -> None:
         prefixes = [_label_prefix(lb) for lb in self.labels]
         if self._dc is None:
-            vals = np.stack([self.tc.column_by_label(lb) for lb in self.labels])
-            cvs, roots = BT.columns_commit_device(
-                FT.pack(vals, self.device), prefixes, self.chunk_log2
-            )
-        elif len(self.labels) * self._n * 32 <= self.cv_budget_bytes:
-            cvs, roots = BT.columns_commit_from_planes(
-                self._dc.planes, prefixes, self.chunk_log2
-            )
+            with span("commit.stack"):
+                vals = np.stack([self.tc.column_by_label(lb) for lb in self.labels])
+            with span("commit.upload", WAIT):
+                vals = FT.pack(vals, self.device)
+            with span("commit.hash", LAUNCH):
+                cvs, roots = BT.columns_commit_device(vals, prefixes, self.chunk_log2)
         else:
-            cvs = None
-            roots = BT.columns_commit_roots_scan(self._dc.planes, prefixes, self.chunk_log2)
-        croots = BT.croots_to_host(roots)
-        for i, lb in enumerate(self.labels):
-            self._croots[lb] = croots[i]
-            self._outer[lb] = MerkleTree.from_leaves(croots[i])
+            with span("commit.hash", LAUNCH):
+                if len(self.labels) * self._n * 32 <= self.cv_budget_bytes:
+                    cvs, roots = BT.columns_commit_from_planes(
+                        self._dc.planes, prefixes, self.chunk_log2
+                    )
+                else:
+                    cvs = None
+                    roots = BT.columns_commit_roots_scan(self._dc.planes, prefixes,
+                                                         self.chunk_log2)
+        with span("commit.pull_roots", WAIT):
+            croots = BT.croots_to_host(roots)
+        with span("commit.outer_trees"):
+            for i, lb in enumerate(self.labels):
+                self._croots[lb] = croots[i]
+                self._outer[lb] = MerkleTree.from_leaves(croots[i])
         self._dev_cvs = cvs
         self._dev = True
 
@@ -161,43 +169,51 @@ class ColumnEngine:
         starts = (rows // chunk) * chunk
         idxs = rows - starts
         if self._dev_cvs is not None:
-            paths, _roots = BT.chunk_paths_device(
-                self._dev_cvs, cols, starts, idxs, self.chunk_log2
-            )
-            if self._dc is not None:
-                flat = torch.as_tensor(cols * self._n + rows, device=self.device)
-                values = FT.unpack(self._dc.planes.reshape(-1)[flat])
-            else:
+            with span("air_openings.upload", WAIT):
+                index = [BT._as_index(a, self.device) for a in (cols, starts, idxs)]
+                if self._dc is not None:
+                    flat = BT._as_index(cols * self._n + rows, self.device)
+            with span("air_openings.paths", LAUNCH):
+                planes, _roots = BT.chunk_path_planes(self._dev_cvs, *index, self.chunk_log2)
+                if self._dc is not None:
+                    gathered = self._dc.planes.reshape(-1)[flat]
+            with span("air_openings.pull", WAIT):
+                paths = BT.path_planes_to_bytes(planes, len(requests), self.chunk_log2)
+                if self._dc is not None:
+                    values = FT.unpack(gathered)
+            if self._dc is None:  # host columns: the values are read on the host
                 values = [self.tc.column_by_label(lb)[row] for lb, row in requests]
         else:
             # no resident CVs: recompute each queried chunk's tree from values
-            prefixes = [_label_prefix(lb) for lb, _ in requests]
-            if self._dc.planes_resident:
-                paths, _roots, values = BT.chunk_paths_from_planes(
-                    self._dc.planes, cols, starts, idxs, prefixes, self.chunk_log2
-                )
-            else:
-                # derive ONLY the queried chunks' columns from the raw inputs
-                uniq, sel = np.unique(starts, return_inverse=True)
-                ranges = self._dc.derive_ranges(uniq, chunk)
-                paths, _roots, values = BT.chunk_paths_from_ranges(
-                    ranges, sel, cols, idxs, prefixes, self.chunk_log2
-                )
+            with span("air_openings.recompute", WAIT):
+                prefixes = [_label_prefix(lb) for lb, _ in requests]
+                if self._dc.planes_resident:
+                    paths, _roots, values = BT.chunk_paths_from_planes(
+                        self._dc.planes, cols, starts, idxs, prefixes, self.chunk_log2
+                    )
+                else:
+                    # derive ONLY the queried chunks' columns from the raw inputs
+                    uniq, sel = np.unique(starts, return_inverse=True)
+                    ranges = self._dc.derive_ranges(uniq, chunk)
+                    paths, _roots, values = BT.chunk_paths_from_ranges(
+                        ranges, sel, cols, idxs, prefixes, self.chunk_log2
+                    )
 
-        out: List[Opening] = []
-        for i, (lb, row) in enumerate(requests):
-            ci = row // chunk
-            out.append(
-                Opening(
-                    value_le=int(values[i]).to_bytes(8, "little"),
-                    index=row,
-                    chunk_index=ci,
-                    index_in_chunk=row - ci * chunk,
-                    chunk_root=self._croots[lb][ci].tobytes(),
-                    path_in_chunk=[paths[i, l].tobytes() for l in range(self.chunk_log2)],
-                    path_to_chunk=self._outer[lb].open(ci),
+        with span("air_openings.assemble"):
+            out: List[Opening] = []
+            for i, (lb, row) in enumerate(requests):
+                ci = row // chunk
+                out.append(
+                    Opening(
+                        value_le=int(values[i]).to_bytes(8, "little"),
+                        index=row,
+                        chunk_index=ci,
+                        index_in_chunk=row - ci * chunk,
+                        chunk_root=self._croots[lb][ci].tobytes(),
+                        path_in_chunk=[paths[i, l].tobytes() for l in range(self.chunk_log2)],
+                        path_to_chunk=self._outer[lb].open(ci),
+                    )
                 )
-            )
         return out
 
 

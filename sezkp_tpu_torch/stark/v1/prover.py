@@ -31,11 +31,9 @@ on the device.
 
 from __future__ import annotations
 
-import time
 from typing import List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from ...core.types import BlockSummary
 from ...crypto.transcript import Blake3Transcript
@@ -44,6 +42,8 @@ from ...ops import goldilocks_torch as FT
 from ...ops import ntt as ntt_host
 from ...ops import ntt_torch
 from ...ops._kernels import resolve_device
+from ...utils import tracing
+from ...utils.tracing import LAUNCH, span
 from . import params
 from .air import Alphas, compose_all_rows
 from .columns import TraceColumns
@@ -108,25 +108,6 @@ def _deep_lde_host(base_vals: np.ndarray, blow_log2: int, shift: int, z: int) ->
     return G.mul(y, G.inv_array(denom))
 
 
-class _Stages:
-    """Wall time per stage; synchronises the device at stage edges so a
-    stage is charged the device work it queued. Inactive without a dict."""
-
-    def __init__(self, out: Optional[dict], device: torch.device):
-        self.out = out
-        self.cuda = device.type == "cuda"
-        self.t = time.perf_counter()
-
-    def mark(self, name: str) -> None:
-        if self.out is None:
-            return
-        if self.cuda:
-            torch.cuda.synchronize()
-        now = time.perf_counter()
-        self.out[name] = self.out.get(name, 0.0) + (now - self.t)
-        self.t = now
-
-
 def _release_planes_if_large(dc: DeviceColumns, release_planes_bytes: int) -> None:
     """Drop the [C, n] device column matrix when it reaches the budget (one
     rule for the release before the LDE and the one after the openings)."""
@@ -134,6 +115,7 @@ def _release_planes_if_large(dc: DeviceColumns, release_planes_bytes: int) -> No
         dc.release_planes()
 
 
+@tracing.records
 def prove_v1(
     blocks: Sequence[BlockSummary],
     manifest_root: bytes,
@@ -168,7 +150,8 @@ def prove_v1(
     device FRI takes its chunked tops-only mode from LDE domains of
     2^`fri_chunked_min_log2` up (fri_device.DeviceFri). `timings`, when a
     dict, receives wall seconds per stage (`fri_commit_chunked` in place of
-    `fri_commit` when FRI took its chunked mode).
+    `fri_commit` when FRI took its chunked mode), and the prove's spans are
+    recorded (utils/tracing.py: a span per stage, sub-spans inside).
 
     `engine` injects a column-commitment engine (the sharded one,
     parallel/engine.py) and takes the host-columns route; `tc` optionally
@@ -181,12 +164,13 @@ def prove_v1(
     n = sum(b.n_steps for b in blocks)
     tau = blocks[0].tau if blocks else 0
     assert n & (n - 1) == 0 and n > 0, "trace length must be a power of two"
-    stages = _Stages(timings, device)
+    stages = tracing.Stages(timings, device)
 
     dc = None
     if engine is None and n >= device_cols_min and not streaming:
         dc = DeviceColumns(blocks, device)
-        dc.planes  # derive now, so the stage below is charged for it
+        with span("device_columns.derive", LAUNCH):
+            dc.planes  # derive now, so the stage below is charged for it
         stages.mark("device_columns")
     else:
         if tc is None:
@@ -207,23 +191,25 @@ def prove_v1(
             dc=dc, cv_budget_bytes=cv_budget_bytes,
         )
     col_roots = engine.build_roots()
-    tr.absorb_u64(params.DS_N_COLS, len(col_roots))
-    for cr in col_roots:
-        tr.absorb(params.DS_COL_ROOT, cr.root)
+    with span("commit.transcript"):
+        tr.absorb_u64(params.DS_N_COLS, len(col_roots))
+        for cr in col_roots:
+            tr.absorb(params.DS_COL_ROOT, cr.root)
     stages.mark("commit")
 
     # ---- alphas / masks / OOD point ----
-    alphas = Alphas.from_list(params.derive_alphas(tr))
-    mask_coeffs = derive_mask_coeffs(tr, DEFAULT_MASK_DEG, DEFAULT_N_MASKS)
+    with span("device_compose.challenges" if dc is not None else "compose.challenges"):
+        alphas = Alphas.from_list(params.derive_alphas(tr))
+        mask_coeffs = derive_mask_coeffs(tr, DEFAULT_MASK_DEG, DEFAULT_N_MASKS)
 
-    blow_log2 = params.BLOWUP.bit_length() - 1
-    base_log2 = n.bit_length() - 1
-    lde_k_log2 = base_log2 + blow_log2
-    lde_n = 1 << lde_k_log2
+        blow_log2 = params.BLOWUP.bit_length() - 1
+        base_log2 = n.bit_length() - 1
+        lde_k_log2 = base_log2 + blow_log2
+        lde_n = 1 << lde_k_log2
 
-    shift = 3
-    z = params.derive_ood_point(tr)
-    z = _nudge_off_coset(z, shift, lde_k_log2)
+        shift = 3
+        z = params.derive_ood_point(tr)
+        z = _nudge_off_coset(z, shift, lde_k_log2)
 
     # ---- base composition + ZK masks, then the DEEP coset LDE ----
     fri_eng = None
@@ -261,11 +247,13 @@ def prove_v1(
     # ---- FRI commit: bind root0, betas, fold + bind roots ----
     if fri_eng is not None:
         root0 = fri_eng.commit_layer0()
-        tr.absorb(params.DS_FRI_LAYER_ROOT, root0)
-        betas = params.derive_betas_for_fri(tr, lde_k_log2)
+        with span("fri_commit.transcript"):
+            tr.absorb(params.DS_FRI_LAYER_ROOT, root0)
+            betas = params.derive_betas_for_fri(tr, lde_k_log2)
         rest = fri_eng.commit_rest(betas)
-        for r in rest:
-            tr.absorb(params.DS_FRI_LAYER_ROOT, r)
+        with span("fri_commit.transcript"):
+            for r in rest:
+                tr.absorb(params.DS_FRI_LAYER_ROOT, r)
         roots = [root0] + rest
         fri_final_value_le = fri_eng.final_value_le()
     else:
@@ -278,46 +266,49 @@ def prove_v1(
         stages.mark("fri_commit_chunked" if fri_eng is not None and fri_eng.chunked else "fri_commit")
 
     # ---- AIR query openings (batched: one device pass for all paths) --
-    rows = params.derive_queries(tr, n, params.NUM_QUERIES)
-    requests = []
-    for row in rows:
-        ip1 = _next_wrap(row, n)
-        for r in range(tau):
-            requests += [
-                (f"mv_{r}", row), (f"mv_{r}", ip1),
-                (f"wflag_{r}", row), (f"wsym_{r}", row),
-                (f"head_{r}", row), (f"head_{r}", ip1),
-                (f"winlen_{r}", row), (f"in_off_{r}", row), (f"out_off_{r}", row),
-            ]
-        requests += [("is_first", row), ("is_last", row), ("input_mv", row)]
+    with span("air_openings.requests"):
+        rows = params.derive_queries(tr, n, params.NUM_QUERIES)
+        requests = []
+        for row in rows:
+            ip1 = _next_wrap(row, n)
+            for r in range(tau):
+                requests += [
+                    (f"mv_{r}", row), (f"mv_{r}", ip1),
+                    (f"wflag_{r}", row), (f"wsym_{r}", row),
+                    (f"head_{r}", row), (f"head_{r}", ip1),
+                    (f"winlen_{r}", row), (f"in_off_{r}", row), (f"out_off_{r}", row),
+                ]
+            requests += [("is_first", row), ("is_last", row), ("input_mv", row)]
     opened = iter(engine.open_batch(requests))
 
-    queries: List[RowOpenings] = []
-    for row in rows:
-        per_tape = [
-            PerTapeOpen(
-                mv=next(opened), next_mv=next(opened), write_flag=next(opened),
-                write_sym=next(opened), head=next(opened), next_head=next(opened),
-                win_len=next(opened), in_off=next(opened), out_off=next(opened),
+    with span("air_openings.assemble"):
+        queries: List[RowOpenings] = []
+        for row in rows:
+            per_tape = [
+                PerTapeOpen(
+                    mv=next(opened), next_mv=next(opened), write_flag=next(opened),
+                    write_sym=next(opened), head=next(opened), next_head=next(opened),
+                    win_len=next(opened), in_off=next(opened), out_off=next(opened),
+                )
+                for _ in range(tau)
+            ]
+            queries.append(
+                RowOpenings(
+                    row=row,
+                    per_tape=per_tape,
+                    is_first=next(opened),
+                    is_last=next(opened),
+                    input_mv=next(opened),
+                )
             )
-            for _ in range(tau)
-        ]
-        queries.append(
-            RowOpenings(
-                row=row,
-                per_tape=per_tape,
-                is_first=next(opened),
-                is_last=next(opened),
-                input_mv=next(opened),
-            )
-        )
     if dc is not None:
         # AIR openings done; free the matrix before the FRI gathers
         _release_planes_if_large(dc, release_planes_bytes)
     stages.mark("air_openings")
 
     # ---- FRI queries ----
-    fri_rows = params.derive_queries(tr, lde_n, params.NUM_QUERIES)
+    with span("fri_openings.plan"):
+        fri_rows = params.derive_queries(tr, lde_n, params.NUM_QUERIES)
     if fri_eng is not None:
         fri_queries: List[FriQuery] = fri_eng.open_queries(fri_rows)
     else:

@@ -234,12 +234,15 @@ def test_profile_ntt_writes_a_trace(tmp_path, capsys, two_torch_threads):
 def test_tracing_and_config(tmp_path):
     from sezkp_tpu_torch.utils import config, tracing
 
-    t = tracing.SpanTimings()
-    with tracing.span("x", t, k=1):
-        pass
-    assert t.rows[0][0] == "x" and t.rows[0][1] >= 0
+    rec = tracing.Recorder()
+    with tracing.proving({}, rec):
+        with tracing.span("x", tracing.LAUNCH):
+            pass
+    x, prove = rec.spans()
+    assert (x.name, x.kind, x.parent) == ("x", "launch", prove.seq)
+    assert prove.name == "prove" and prove.parent == -1 and x.end >= x.begin
     assert tracing.log.name == "sezkp_tpu_torch"
-    assert tracing.global_timings() is tracing.global_timings()
+    assert not any(hasattr(tracing, a) for a in ("SpanTimings", "_GLOBAL", "global_timings"))
     assert config.ENV_KEYS["FOLD_MODE"] == "SEZKP_FOLD_MODE"
     assert not hasattr(config, "enable_compile_cache")
     p = tmp_path / "p.toml"
