@@ -9,7 +9,7 @@ Phases (any failure ends the run with a non-zero exit code):
   env           card name and power limit, versions; builds the native host
                 library (g++) and the CUDA kernels (nvcc) from the sources in
                 this checkout; ptxas's registers, spills and shared memory of
-                K4, K5 and K8-K11.
+                K4, K5, K8-K11 and K12.
   kernels       every hand-written kernel against its plain PyTorch version
                 on the card, exact equality (tolerance 0: integer code), at
                 reduced and at main-path shapes; kernel, plain and bound times.
@@ -35,12 +35,16 @@ Phases (any failure ends the run with a non-zero exit code):
                 256 x 128 tile and 128-byte k chunk; K11 also at the edges of
                 its tiles (one and three slices, 48 rows, last factors 32 and
                 1024, an X 8 bytes off a 16-byte boundary); K10 and K11 timed
-                issued and replayed from a CUDA graph.
+                issued and replayed from a CUDA graph. K12 (the DEEP divide)
+                at 2^13 + 3 random points, over the LDE's coset at 2^20 and
+                2^23 and at 2^27 points, z off the coset and on it, one
+                launch a call; timed at 2^23 and 2^27.
   prove         T = 2^20, b = 512, tau = 8 on the device-resident route:
                 generate_trace -> partition_trace -> commit_blocks ->
                 StarkV1.prove (on the card) -> StarkV1.verify; a tampered
                 proof is rejected; a second prove is byte-identical; the
-                launch counts of K1-K4 over the prove are > 0; wall time per
+                launch counts of K1-K4 over the prove are > 0 and K12's is
+                1; wall time per
                 stage and peak device memory. Then one prove on the
                 host-columns route, whose bytes must be the same, and one
                 with the chunked tops-only FRI forced
@@ -135,7 +139,8 @@ Phases (any failure ends the run with a non-zero exit code):
                 of the kernels phase rest on, with a sha256 of each kernel's
                 instructions, K4's instructions per element by pipe, K5's
                 registers, spills and instruction mix at every n, and K8's,
-                K10's and K11's registers, spills and shared memory; the
+                K10's and K11's registers, spills and shared memory, K12's
+                instructions over its points, loops and registers; the
                 text goes to chiprun_out/sass/. With
                 --sass-csrc DIR (the ops/csrc of another checkout) it builds
                 those sources too and says which kernels are the same code.
@@ -280,7 +285,7 @@ def phase_env(state) -> None:
     t1 = time.time()
     # ptxas's registers, spills and shared memory of K4, K5, K8-K11, built beside the library
     ptxas = _ptxas_start(("ntt_last.cu", "ntt_small.cu", "i8_gemm.cu", "gl_digits.cu", "digit_dft.cu",
-                          "digit_dft_last.cu"))
+                          "digit_dft_last.cu", "deep_divide.cu"))
     _kernels.lib()
     log(f"[env] set-up: native host lib {t1 - t0:.1f} s, CUDA kernels {_kernels.build_seconds:.1f} s")
     for func, usage in sorted(_ptxas_usage(ptxas)[1].items()):
@@ -723,13 +728,66 @@ def phase_kernels(state) -> None:
         "and misaligned tensors (forward_ntt realigns its input), and K7 a length outside 1..1024 "
         "and a wrong plane count")
 
+    # ---- K12 deep_divide against its plain version on the same tensors: at
+    # 2^13 + 3 random points, over the LDE's coset at 2^20 and 2^23 (the table a
+    # T = 2^20 prove uses) and at 2^27 random points (the T = 2^24 prove's
+    # size); z off the coset (nudged as the prover does) and on it (a zero
+    # denominator, 0 there). Timed at 2^23 and 2^27.
+    from sezkp_tpu_torch.stark.v1.prover import _nudge_off_coset
+
+    err12, timed12 = 0, {}
+    # Goldilocks products a point (ntt_torch.deep_divide_model): the prefix
+    # (K - 1), the walk back (2 (K - 1)), the final K, the chain's 63 + 9 once a thread
+    k12 = NT.DIVIDE_POINTS
+    products = (3 * (k12 - 1) + k12 + 72) / k12
+    for n_log2, extra in ((13, 3), (20, 0), (23, 0), (27, 0)):
+        n = (1 << n_log2) + extra
+        y = _field_rand((n,), gen, dev)
+        if n_log2 == 23:
+            xs = NT._deep_lde_tables(n_log2 - 3, n_log2, 3, dev)[1]
+        elif n_log2 == 20:
+            xs = FT.pack(G.mul(np.uint64(3), ntt_host.powers(G.primitive_root_2exp(n_log2), n)), dev)
+        else:
+            xs = _field_rand((n,), gen, dev)
+        z_on = int(_to_u64(xs[7:8])[0])
+        for z in (_nudge_off_coset(0x1234567890ABCDEF % int(G.P), 3, n_log2), z_on):
+            before = NT.deep_divide.launches
+            got = NT.deep_divide(y, z, xs)
+            if NT.deep_divide.launches != before + 1:
+                fail("K12 deep_divide: a call must launch once")
+            want = NT.deep_divide_plain(y, z, xs)
+            torch.cuda.synchronize()
+            err12 = max(err12, max_abs_diff(got, want))
+            if err12:
+                fail(f"K12 deep_divide != plain at n = 2^{n_log2} + {extra}, z = {z}: max |difference| {err12}")
+            del got, want
+        if not extra:
+            reps = 20 if n_log2 < 27 else 5
+            b_bytes = 24 * n / _peaks()[0] * 1e3
+            b_ops = ops_ms(n, tuple(products * mc + su for mc, su in zip(GL_MULCC_OPS, GL_SUB_OPS)))
+            timed12[n_log2] = dict(
+                shape=f"int64 y, xs [2^{n_log2}] -> [2^{n_log2}]",
+                ms=time_cuda(lambda: NT.deep_divide(y, z_on, xs), reps),
+                plain_ms=time_cuda(lambda: NT.deep_divide_plain(y, z_on, xs), 1) if n_log2 == 23 else None,
+                bound_ms=max(b_bytes, b_ops), bound_by="bytes" if b_bytes >= b_ops else "operations",
+                bytes_ms=b_bytes, operations_ms=b_ops, products_a_point=products)
+        del y, xs
+    kern["deep_divide"] = dict(
+        name="deep_divide", route="cuda", source="sezkp_tpu_torch/ops/csrc/deep_divide.cu",
+        replaces="none: plain jnp in the JAX package (sezkp_tpu/ops/ntt_jax.py _pow_p_minus_2)",
+        max_abs_err=err12, **timed12[23], library_ms=None, at_2_27=timed12[27])
+    log(f"[kernels] K12 deep_divide == plain at 2^13 + 3, 2^20, 2^23, 2^27, z off and on the coset: "
+        + "; ".join(f"2^{k}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, {t['bound_by']})"
+                    for k, t in timed12.items())
+        + f"; plain {timed12[23]['plain_ms']:.1f} ms at 2^23")
+
     _kernels_digit_form(kern, gen, dev)
 
-    # the plain tensor steps of the DEEP glue and the FRI fold, which no
-    # kernel covers (they are outside any kernel in the JAX package too)
+    # the plain tensor steps of the DEEP glue (the coset scale's product) and
+    # the FRI fold, which no kernel covers (they are outside any kernel in the
+    # JAX package too)
     half = a.shape[0] // 2
     glue = {
-        "pow_p_minus_2": time_cuda(lambda: FT.pow_p_minus_2(a), 1),
         "mul": time_cuda(lambda: FT.mul(a, back), 5),
         "fri_fold": time_cuda(
             lambda: FT.add(a[:half], FT.mul(FT.scalar(12345, a), a[half:])), 5),
@@ -1093,7 +1151,7 @@ def _short(name: str) -> str:
     for K10's (source, epilogue); other names as they are."""
     k = re.search(r"(ntt_(?:phase_\w+?|small)_kernel)(?:I((?:L[ib]\d+E)+)E)?", name)
     if not k:
-        other = re.search(r"\d((?:i8|gl|digit)_[a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?", name)
+        other = re.search(r"\d((?:i8|gl|digit|deep)_[a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?", name)
         if not other:
             return name
         args = re.findall(r"L[ib](\d+)E", other.group(2) or "")
@@ -1181,7 +1239,8 @@ def phase_sass(state) -> None:
 
     # registers, spills and shared memory of K2-K5's instantiations and of K8-K11 (ptxas)
     ptxas, usage = _ptxas_usage(_ptxas_start(("ntt_phases.cu", "ntt_last.cu", "ntt_small.cu", "i8_gemm.cu",
-                                              "gl_digits.cu", "digit_dft.cu", "digit_dft_last.cu")))
+                                              "gl_digits.cu", "digit_dft.cu", "digit_dft_last.cu",
+                                              "deep_divide.cu")))
     with open("chiprun_out/sass/ptxas_ntt_phases.txt", "w") as f:
         f.write(ptxas)
     summary += [f"ptxas {f}: {' | '.join(u)}" for f, u in sorted(usage.items())]
@@ -1220,6 +1279,17 @@ def phase_sass(state) -> None:
             summary.append(f"K4 {short}: per element imad-family {pipes['imad'] / per:.1f}, "
                            f"alu {units['alu'] / per:.1f}, memory {units['mem'] / per:.1f}, "
                            f"control {units['ctl'] / per:.1f}")
+        # K12: a thread's instructions over its kPoints points
+        if short == "deep_divide_kernel":
+            pipes = Counter(_pipe(op) for _, op, _ in ins)
+            units = Counter(_unit(op) for _, op, _ in ins)
+            loops = sum(1 for a, op, rest in ins if op.startswith("BRA") and
+                        (m := re.search(r"0x([0-9a-f]+)\s*$", rest.strip())) and int(m.group(1), 16) <= a)
+            per = NT.DIVIDE_POINTS
+            summary.append(f"K12 deep_divide_kernel: {len(ins)} instructions, {loops} loops (their bodies "
+                           f"counted once); over its {per} points imad-family {pipes['imad'] / per:.1f}, alu "
+                           f"{units['alu'] / per:.1f}, memory {units['mem'] / per:.1f}, control "
+                           f"{units['ctl'] / per:.1f} a point; ptxas {' | '.join(usage.get(short, ['not reported']))}")
         # K5 has no loop either: each thread runs its instructions once, the
         # chain whose length a transform waits for
         k5 = re.fullmatch(r"ntt_small_kernel<(\d+),(\d+)>", short)
@@ -1281,6 +1351,7 @@ def _wrappers():
         "ntt_phase_batched": NT.phase_batched,
         "ntt_phase_last": NT.phase_last,
         "ntt_small": NT.small_ntt,
+        "deep_divide": NT.deep_divide,
     }
 
 
@@ -1353,6 +1424,8 @@ def phase_prove(state) -> None:
     for k in ("blake3_compress", "ntt_phase_axis", "ntt_phase_batched", "ntt_phase_last"):
         if launches[k] <= 0:
             fail(f"kernel {k} was never launched by the prove")
+    if launches["deep_divide"] != 1:
+        fail(f"K12 deep_divide must launch exactly once a prove, not {launches['deep_divide']} times")
 
     t0 = time.time()
     StarkV1.verify(art, blocks, man.root)
@@ -1379,6 +1452,8 @@ def phase_prove(state) -> None:
         f"sha256 {_sha(art3)}")
     if "host_compose" not in timings3:
         fail("device_cols_min above n did not select the host-columns route")
+    if launches3["deep_divide"] != 1:
+        fail(f"K12 deep_divide must launch exactly once on the host-columns route, not {launches3['deep_divide']}")
     if art3.proof_bytes != art.proof_bytes:
         fail("the host-columns route and the device-resident route give different proofs")
 
@@ -2346,6 +2421,8 @@ def phase_prove_large(state) -> None:
             for k in ("blake3_compress", "ntt_phase_axis", "ntt_phase_batched", "ntt_phase_last"):
                 if launches[k] <= 0:
                     fail(f"kernel {k} was never launched by the prove")
+            if launches["deep_divide"] != 1:
+                fail(f"K12 deep_divide must launch exactly once a prove, not {launches['deep_divide']} times")
             if t_log2 == state["large_t"][-1] and mode == state["large_modes"][0]:
                 state["launches_large"] = launches
             if first is None:

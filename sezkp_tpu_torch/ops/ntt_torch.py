@@ -67,9 +67,11 @@ in cache instead of one of n elements to stream.
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version only for a CPU tensor.
 
-The elementwise field work of the DEEP glue (``x - z``, the batched inverse by
-``x^(p-2)``, the final product) is plain tensor code on either device, as it
-is outside any kernel in the JAX package.
+The DEEP glue's division y / (x - z) is **K12 ``deep_divide``**
+(csrc/deep_divide.cu) on the card: a batched inverse in registers, one launch
+where the plain version (``x - z``, ``x^(p-2)`` by square-and-multiply, the
+product; plain jnp in the JAX package, outside any kernel) takes some 6,100
+elementwise operations. ``deep_divide_model`` is its schedule in tensor code.
 """
 
 from __future__ import annotations
@@ -810,10 +812,92 @@ def scale_pad(coeffs: torch.Tensor, shift_pows: torch.Tensor, lde_n: int) -> tor
     return out
 
 
-def deep_divide(y: torch.Tensor, z: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
-    """y / (xs - z), z a 0-d field tensor on xs's device (no upload here)."""
-    denom = FT.sub(xs, z)
-    return FT.mul(y, FT.pow_p_minus_2(denom))
+DIVIDE_POINTS, DIVIDE_THREADS = 8, 128  # K12: points a thread, threads a block (kPoints, kThreads)
+
+
+def deep_divide_plain(y: torch.Tensor, z: int, xs: torch.Tensor) -> torch.Tensor:
+    """y / (xs - z) elementwise on any device: x - z, the inverse by
+    ``FT.pow_p_minus_2`` (0 -> 0), the product."""
+    return FT.mul(y, FT.pow_p_minus_2(FT.sub(xs, FT.scalar(z, xs))))
+
+
+def deep_divide(y: torch.Tensor, z: int, xs: torch.Tensor) -> torch.Tensor:
+    """y / (xs - z) elementwise, 1/0 taken as 0; z an int. K12 wrapper: for
+    CUDA tensors (contiguous int64 of one shape) one launch, z passed by
+    value; for CPU tensors ``deep_divide_plain``."""
+    if not y.is_cuda:
+        return deep_divide_plain(y, z, xs)
+    for t in (y, xs):
+        if t.dtype != torch.int64 or not t.is_contiguous() or t.shape != y.shape or t.device != y.device:
+            raise ValueError("deep_divide takes contiguous int64 tensors of one shape on one device")
+    out = torch.empty_like(y)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(y.device):
+        rc = _kernels.lib().sezkp_deep_divide(
+            y.data_ptr(), xs.data_ptr(), out.data_ptr(), y.numel(), int(z) % FT.P_INT, _kernels.stream_ptr())
+    _kernels.check(rc, "deep_divide")
+    deep_divide.launches += 1
+    return out
+
+
+deep_divide.launches = 0
+
+
+def inverse_chain(x: torch.Tensor) -> torch.Tensor:
+    """x^(p-2) by K12's addition chain (csrc/deep_divide.cu ``pow_p_minus_2``):
+    with t_k = x^(2^k - 1), t_2, t_3, t_6, t_12, t_24, t_30 = t_24^(2^6) t_6,
+    t_31; s = t_31^2; s^(2^32) * (s x). 63 squarings and 9 multiplies."""
+    def sqr_n(a, n):
+        for _ in range(n):
+            a = FT.mul(a, a)
+        return a
+
+    t2 = FT.mul(sqr_n(x, 1), x)
+    t3 = FT.mul(sqr_n(t2, 1), x)
+    t6 = FT.mul(sqr_n(t3, 3), t3)
+    t12 = FT.mul(sqr_n(t6, 6), t6)
+    t24 = FT.mul(sqr_n(t12, 12), t12)
+    t30 = FT.mul(sqr_n(t24, 6), t6)
+    t31 = FT.mul(sqr_n(t30, 1), x)
+    s = sqr_n(t31, 1)
+    return FT.mul(sqr_n(s, 32), FT.mul(s, x))
+
+
+def deep_divide_model(y: torch.Tensor, z: int, xs: torch.Tensor, k: int = DIVIDE_POINTS,
+                      threads: int = DIVIDE_THREADS) -> torch.Tensor:
+    """K12's schedule in tensor code, for flat y, xs [n]: thread t of block b
+    owns the k points b*k*threads + j*threads + t; d_j = xs - z, a zero d_j
+    and a point past n enter as 1; the prefix products c_j; one inverse of
+    c_{k-1} by ``inverse_chain``; back through the prefixes, d_j^-1 =
+    inv * c_{j-1} and inv *= d_j; each live point stored by address, y * d^-1,
+    or 0 where d_j was 0. Raises if an address is written other than once."""
+    n = int(y.shape[0])
+    per_block = k * threads
+    nblk = -(-n // per_block)
+    idx = torch.arange(nblk * per_block, device=y.device).reshape(nblk, k, threads)  # [b, j, t]
+    live = idx < n
+    src = idx.clamp(max=n - 1)
+    d = FT.sub(xs[src], FT.scalar(z, xs))
+    zero = live & (d == 0)
+    d = torch.where(zero | ~live, torch.ones_like(d), d)
+    c = [d[:, 0]]
+    for j in range(1, k):
+        c.append(FT.mul(c[-1], d[:, j]))
+    inv = inverse_chain(c[-1])
+    dinv = [None] * k
+    for j in range(k - 1, 0, -1):
+        dinv[j] = FT.mul(inv, c[j - 1])
+        inv = FT.mul(inv, d[:, j])
+    dinv[0] = inv
+    val = torch.where(zero, torch.zeros_like(d), FT.mul(y[src], torch.stack(dinv, 1)))
+    addr = idx[live]
+    writes = torch.bincount(addr, minlength=n)
+    if writes.numel() != n or not bool((writes == 1).all()):
+        raise AssertionError("K12's stores do not cover the output once each")
+    out = torch.empty(n, dtype=y.dtype, device=y.device)
+    out[addr] = val[live]
+    return out
 
 
 def deep_coset_lde(base: torch.Tensor, blow_log2: int, shift: int, z: int) -> torch.Tensor:
@@ -828,10 +912,9 @@ def deep_coset_lde(base: torch.Tensor, blow_log2: int, shift: int, z: int) -> to
     lde_log2 = base_log2 + blow_log2
     with span("lde.intt", LAUNCH, sync=True):
         coeffs = inverse_ntt(base)
-    # the tables are cached after the first prove; z goes up (which synchronises)
+    # the tables are cached after the first prove
     with span("lde.tables", WAIT, sync=True):
         shift_pows, xs = _deep_lde_tables(base_log2, lde_log2, shift, base.device)
-        z = FT.scalar(z, xs)
     with span("lde.coset_ntt", LAUNCH, sync=True):
         y = forward_ntt(scale_pad(coeffs, shift_pows, 1 << lde_log2))
     with span("lde.divide", LAUNCH, sync=True):

@@ -274,7 +274,7 @@ def _phase1(mesh: Mesh, cols: torch.Tensor, tau: int, a, mc, z: int, base_log2: 
     del a2
     k1 = r * (ln1 // d) + torch.arange(ln1 // d, dtype=torch.int64, device=dev)
     xk = FT.mul(t["x1"][k1][:, None], t["x2"][None, :])
-    y = FT.mul(y, FT.pow_p_minus_2(FT.sub(xk, FT.scalar(z, xk))))
+    y = NT.deep_divide(y.contiguous(), z, xk)
     del xk
 
     # ---- natural order: k2'-major rows are the flat domain ----

@@ -1,16 +1,17 @@
 """A/B of the design choices of K2 ntt_phase_axis, K3 ntt_phase_batched, K4
-ntt_phase_last, K5 ntt_small, K9 gl_digits, K10 digit_dft and K11
-digit_dft_last.
+ntt_phase_last, K5 ntt_small, K9 gl_digits, K10 digit_dft, K11
+digit_dft_last and K12 deep_divide.
 
 Each variant is this checkout's ops/csrc with the text edits of one design
 choice, the sources it concerns (ntt_phases.cu for K2/K3, ntt_last.cu for
 K4, ntt_small.cu for K5, gl_digits.cu for K9, digit_dft.cu for K10 and
-digit_dft_last.cu for K11, whose common body is digit_wgmma.cuh) built into a library of its own (nvcc,
+digit_dft_last.cu for K11, whose common body is digit_wgmma.cuh, deep_divide.cu
+for K12) built into a library of its own (nvcc,
 all variants at once, under sezkp_tpu_torch/_build/variants/). The
 main-path shapes of a T = 2^20 prove (the coset NTT at 2^23, the base
 inverse NTT at 2^20), of a T = 2^13 prove (K5 at 2^13) and of the probes
 (K9's k-major stack and K10 on one phase of 2^23, K10 in three modes,
-K11's phase C at 2^23) are timed with CUDA events in turns: every variant,
+K11's phase C at 2^23, K12 over the LDE's coset of 2^23) are timed with CUDA events in turns: every variant,
 then every variant again in reverse order; K5, whose launch costs the host
 more than the card, K9, K10 and K11 replayed from a CUDA graph. Each variant's
 outputs must equal the port's own kernels'. ptxas's registers and spills of
@@ -58,6 +59,17 @@ the main-path instantiations are printed.
                    store of a 3-D box [8 planes][16 columns][128 bytes] (the
                    128-byte swizzle in shared memory) instead of 16-byte
                    vector stores
+  k12_points4      K12 with 4 points a thread instead of 8 (the addition
+                   chain shared by half as many points)
+  k12_points12     ... with 12
+  k12_points16     ... with 16
+  k12_points32     ... with 32
+  k12_threads256   K12 with 256 threads a block instead of 128
+  k12_rolled       K12's squaring runs as loops that are not unrolled (a
+                   shorter program, a counter and a branch a squaring)
+  k12_reload       K12 loading each x again on the walk back (d_j = x_j - z
+                   anew) instead of keeping the K denominators in registers
+  k12_reload16     ... with 16 points a thread
 
 Usage: python -m sezkp_tpu_torch.probes.ntt_variants [--variants base,mul] [--iters 50]
 (needs nvcc and the card).
@@ -86,6 +98,11 @@ _K3_BOUND = "__launch_bounds__(Plan<L>::NT, Plan<L>::NT == 256 ? 3 : 1)\nntt_pha
 _K2_BOUND = "__launch_bounds__(Plan<L>::NT)\nntt_phase_axis_kernel"
 _K23, _K4, _K5 = ("ntt_phases.cu",), ("ntt_last.cu",), ("ntt_small.cu",)
 _K9, _K10, _K11 = ("gl_digits.cu",), ("digit_dft.cu",), ("digit_dft_last.cu",)
+_K12 = ("deep_divide.cu",)
+# K12's walk back with d_j formed anew from a second load of x_j
+_K12_RELOAD = ("deep_divide.cu", "    if (j) inv = gl::mul_cc(inv, d[j]);",
+               "    if (j) inv = gl::mul_cc(inv, i0 + (long long)j * kThreads < n && !((zero >> j) & 1)\n"
+               "                                     ? gl::sub(xs[i0 + (long long)j * kThreads], z) : 1);")
 # K10's elements stage: the producer's load, the reader, the host's map
 _K10_LOAD = "tma_load_2d(sX + ix * kXBytes, map_x, full_x + ix, h * kRows, kc * kChunk + (2 * sc + jj) * kXB);"
 _K10_READ = """      const unsigned char* col = xs + (16 * w4 + g + 8 * rr) * 8;
@@ -185,7 +202,7 @@ _K9_TMA_LAUNCH = """  CUtensorMap tm;
 
 # name: (the sources built, [(file, text, replacement)])
 VARIANTS = {
-    "base": (_K23 + _K4 + _K5 + _K9 + _K10 + _K11, []),
+    "base": (_K23 + _K4 + _K5 + _K9 + _K10 + _K11 + _K12, []),
     "add_sub": (_K23, [("ntt_reg.cuh", "gl::bfly(u, t, a, b);", "a = gl::add(u, t);\n  b = gl::sub(u, t);")]),
     "mul": (_K23, [("ntt_reg.cuh", "gl::mul_cc(", "gl::mul("), ("ntt_phases.cu", "gl::mul_cc(", "gl::mul(")]),
     "k3_two_blocks": (_K23, [("ntt_phases.cu", _K3_BOUND, "__launch_bounds__(Plan<L>::NT)\nntt_phase_batched_kernel")]),
@@ -234,6 +251,15 @@ VARIANTS = {
     "k9_tma": (_K9, [("gl_digits.cu", '#include "smem_opt_in.cuh"', '#include "smem_opt_in.cuh"\n#include "tma_wgmma.cuh"'),
                      ("gl_digits.cu", _K9_WORD, _K9_TMA_WORD), ("gl_digits.cu", _K9_SIG, _K9_TMA_SIG),
                      ("gl_digits.cu", _K9_STORE, _K9_TMA_STORE), ("gl_digits.cu", _K9_LAUNCH, _K9_TMA_LAUNCH)]),
+    "k12_points4": (_K12, [("deep_divide.cu", "constexpr int kPoints = 8;", "constexpr int kPoints = 4;")]),
+    "k12_points12": (_K12, [("deep_divide.cu", "constexpr int kPoints = 8;", "constexpr int kPoints = 12;")]),
+    "k12_points16": (_K12, [("deep_divide.cu", "constexpr int kPoints = 8;", "constexpr int kPoints = 16;")]),
+    "k12_points32": (_K12, [("deep_divide.cu", "constexpr int kPoints = 8;", "constexpr int kPoints = 32;")]),
+    "k12_threads256": (_K12, [("deep_divide.cu", "constexpr int kThreads = 128;", "constexpr int kThreads = 256;")]),
+    "k12_rolled": (_K12, [("deep_divide.cu", "  for (int i = 0; i < n; ++i) x = gl::mul_cc(x, x);",
+                           "#pragma unroll 1\n  for (int i = 0; i < n; ++i) x = gl::mul_cc(x, x);")]),
+    "k12_reload": (_K12, [_K12_RELOAD]),
+    "k12_reload16": (_K12, [_K12_RELOAD, ("deep_divide.cu", "constexpr int kPoints = 8;", "constexpr int kPoints = 16;")]),
 }
 
 
@@ -276,6 +302,8 @@ def _build(names):
                 func = f"ntt_{k.group(1)}_kernel<{','.join(args)}>" if main else None
                 if "digit_dft_last_kernel" in m.group(1):
                     func = "digit_dft_last_kernel"
+                if "deep_divide_kernel" in m.group(1):
+                    func = "deep_divide_kernel"
                 d = re.search(r"digit_dft_kernelILi(\d)ELi(\d)E", m.group(1))
                 if d:
                     func = f"digit_dft_kernel<{d.group(1)},{d.group(2)}>"
@@ -300,6 +328,8 @@ def _build(names):
             lib.sezkp_digit_dft.argtypes = [vp, vp, vp, vp, i, ll, i, vp]
         if "digit_dft_last.cu" in VARIANTS[name][0]:
             lib.sezkp_digit_dft_last.argtypes = [vp, vp, vp, i, i, i, vp]
+        if "deep_divide.cu" in VARIANTS[name][0]:
+            lib.sezkp_deep_divide.argtypes = [vp, vp, vp, ll, ull, vp]
         libs[name] = lib
     return libs
 
@@ -387,6 +417,15 @@ def _cases(dev):
         return lib.sezkp_digit_dft_last(wf.data_ptr(), x.data_ptr(), y.data_ptr(), cols, m2, mc, _kernels.stream_ptr())
 
     cases.append((f"K11 [{cols}, {m2}*{mc}] 2^23", "digit_dft_last.cu", k11, y, ND.digit_dft_last(x, wf), 1))
+    # K12 over the LDE's coset of a T = 2^20 prove, z on the coset (one zero denominator)
+    xs = NT._deep_lde_tables(20, 23, 3, dev)[1]
+    yd, z = rand_field((1 << 23,), 12, dev), int(FT.unpack(xs[7:8])[0])
+    od = torch.empty_like(yd)
+
+    def k12(lib):
+        return lib.sezkp_deep_divide(yd.data_ptr(), xs.data_ptr(), od.data_ptr(), 1 << 23, z, _kernels.stream_ptr())
+
+    cases.append(("K12 [2^23] coset", "deep_divide.cu", k12, od, NT.deep_divide(yd, z, xs), 0))
     return cases
 
 

@@ -382,3 +382,82 @@ def test_small_cluster_model_matches_oracle_and_plain(k, inverse):
     for c in [1 << i for i in range(5) if 1 << i <= n1]:
         assert np.array_equal(FT.unpack(NT.small_cluster_model(t, inverse, c)), want), c
     assert np.array_equal(FT.unpack(NT.small_cluster_model(t, inverse)), want)
+
+
+# ------------------------- K12's batched inversion -------------------------
+
+_EDGES = [0, 1, 2, 1 << 32, (1 << 32) - 1, 1 << 63, P - 2, P - 1]
+
+
+def test_inverse_chain_matches_pow_p_minus_2():
+    """K12's addition chain for x^(p-2) (63 squarings, 9 multiplies) ==
+    FT.pow_p_minus_2's square-and-multiply, on random and edge values, and
+    x * x^(p-2) = 1 for every nonzero x."""
+    x = _rand(1000, 1200)
+    x[2:2 + len(_EDGES)] = _EDGES
+    t = FT.pack(x)
+    got = NT.inverse_chain(t)
+    assert torch.equal(got, FT.pow_p_minus_2(t))
+    nz = x != 0
+    assert np.all(G.mul(x[nz], FT.unpack(got)[nz]) == 1) and np.all(FT.unpack(got)[~nz] == 0)
+
+
+def test_divide_constants_match_kernel_source():
+    """ntt_torch's copies of K12's constants equal csrc/deep_divide.cu's."""
+    src = open(os.path.join(os.path.dirname(NT.__file__), "csrc", "deep_divide.cu")).read()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const == {"kPoints": NT.DIVIDE_POINTS, "kThreads": NT.DIVIDE_THREADS}
+
+
+def _divide_oracle(y, z, xs):
+    """numpy: y / (xs - z) by G.inv_array over the nonzero denominators, 0 elsewhere."""
+    d = G.sub(xs, np.uint64(z))
+    nz = d != 0
+    out = np.zeros_like(y)
+    out[nz] = G.mul(y[nz], G.inv_array(d[nz]))
+    return out
+
+
+_BLOCK = NT.DIVIDE_POINTS * NT.DIVIDE_THREADS
+
+
+@pytest.mark.parametrize("grouping", [(NT.DIVIDE_POINTS, NT.DIVIDE_THREADS), (5, 3)])
+@pytest.mark.parametrize("z_on", ["none", "one", "several"])
+@pytest.mark.parametrize("n", [1, 7, _BLOCK - 1, _BLOCK + 1, (1 << 13) + 5])
+def test_deep_divide_model_matches_plain_and_oracle(n, z_on, grouping):
+    """K12's schedule in tensor code (per-thread strided batches, prefix
+    products, the addition chain, the zero mask, the tail past n), with the
+    kernel's grouping and with 5 points a thread and 3 threads a block, ==
+    deep_divide_plain == the numpy oracle, with 0, 1, 2^32 and p - 1 among
+    the values and z equal to no, one or several of the xs (0 there, the
+    neighbours right)."""
+    rng = np.random.default_rng(1300 + n + 7 * len(z_on))
+    xs = rng.integers(0, P, n, dtype=np.uint64)
+    y = rng.integers(0, P, n, dtype=np.uint64)
+    for a in (xs, y):
+        a[: min(n, 4)] = [0, 1, 1 << 32, P - 1][: min(n, 4)]
+    if z_on == "none":
+        z = int(rng.integers(0, P, dtype=np.uint64))
+        while z in set(xs.tolist()):
+            z += 1
+    else:
+        z = int(xs[n // 2])
+        if z_on == "several":
+            xs[[0, n // 3, n - 1]] = z
+    want = _divide_oracle(y, z, xs)
+    assert (want == 0).sum() >= {"none": 0, "one": 1, "several": min(n, 3)}[z_on]
+    plain = NT.deep_divide(FT.pack(y), z, FT.pack(xs))
+    assert np.array_equal(FT.unpack(plain), want)
+    k, threads = grouping
+    model = NT.deep_divide_model(FT.pack(y), z, FT.pack(xs), k, threads)
+    assert torch.equal(model, plain)
+
+
+def test_deep_divide_counts_no_launch_on_cpu():
+    """On a CPU tensor the wrapper runs the plain version and counts no launch;
+    z is taken mod p."""
+    y, xs = FT.pack(_rand(64, 1400)), FT.pack(_rand(64, 1401))
+    before = NT.deep_divide.launches
+    got = NT.deep_divide(y, P + 5, xs)
+    assert NT.deep_divide.launches == before
+    assert torch.equal(got, NT.deep_divide_plain(y, 5, xs))
