@@ -44,6 +44,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils import tracing
 from . import _kernels
 
 IV = (
@@ -359,7 +360,8 @@ def columns_commit_device(values: torch.Tensor, prefixes: Sequence[bytes], chunk
 
 
 def columns_commit_roots_scan(values: torch.Tensor, prefixes: Sequence[bytes],
-                              chunk_log2: int, idx=None, seg_log2: int = 21):
+                              chunk_log2: int, idx=None, seg_log2: int = 21,
+                              counter: Optional[str] = None):
     """Memory-bounded chunk roots: the same roots as columns_commit_from_planes
     but no leaf-CV buffer; each column is hashed 2^seg_log2 rows at a time and
     only the chunk roots are kept. Openings then recompute the queried chunks
@@ -367,11 +369,16 @@ def columns_commit_roots_scan(values: torch.Tensor, prefixes: Sequence[bytes],
     A segment costs 1 + chunk_log2 launches of K1 and their host-side calls
     whatever its size, so segments are large (2^21 rows: 192 MB of messages
     and CVs); the JAX package's 2^16 is one compiled scan there.
+    It runs C * n / 2^min(seg_log2, log2 n) segments (C the selected rows),
+    which it adds to the recorded prove's counter `counter` when one is
+    named (utils/tracing.count): 59 * 8 = 472 for the columns of T = 2^24.
     Returns roots int32 [C, 8, n_chunks] on the device."""
     rows = _select(values, prefixes, idx)
     n = values.shape[1]
     seg = 1 << min(seg_log2, n.bit_length() - 1)
     assert n % seg == 0 and seg >= (1 << chunk_log2)
+    if counter is not None:
+        tracing.count(counter, len(rows) * (n // seg))
     roots = torch.empty((len(rows), 8, n >> chunk_log2), dtype=torch.int32, device=values.device)
     for ci, row in enumerate(rows):
         for s in range(0, n, seg):
@@ -396,9 +403,13 @@ def _as_index(x, dev) -> torch.Tensor:
 
 
 def _path_planes_from_leaf_cvs(cur: torch.Tensor, cur_idx: torch.Tensor, chunk_log2: int, rows=None):
-    """`_paths_from_leaf_cvs` on the device: (the sibling nodes int32
-    [chunk_log2, 8, R] or None when chunk_log2 is 0, the chunk roots' CV
-    planes [8, K])."""
+    """cur: int32 [8, K * chunk] leaf CVs of K chunks side by side; cur_idx:
+    int64 [R] index of the opened leaf inside chunk rows[R] (default: one
+    request a chunk, R = K, rows = 0 .. K-1). Each chunk's tree is built level
+    by level on the device (chunks are aligned, so no sibling pair crosses
+    one) and the sibling nodes gathered on the way.
+    Returns (the sibling nodes int32 [chunk_log2, 8, R] or None when
+    chunk_log2 is 0, the chunk roots' CV planes [8, K])."""
     k = cur_idx.shape[0]
     base = torch.arange(k, device=cur.device) if rows is None else rows
     paths: List[torch.Tensor] = []
@@ -410,17 +421,6 @@ def _path_planes_from_leaf_cvs(cur: torch.Tensor, cur_idx: torch.Tensor, chunk_l
         cur_idx = cur_idx >> 1
         m >>= 1
     return (torch.stack(paths, dim=0) if paths else None), cur
-
-
-def _paths_from_leaf_cvs(cur: torch.Tensor, cur_idx: torch.Tensor, chunk_log2: int, rows=None):
-    """cur: int32 [8, K * chunk] leaf CVs of K chunks side by side; cur_idx:
-    int64 [R] index of the opened leaf inside chunk rows[R] (default: one
-    request a chunk, R = K, rows = 0 .. K-1). Each chunk's tree is built level
-    by level (chunks are aligned, so no sibling pair crosses one) and the
-    sibling nodes gathered on the way.
-    Returns (paths uint8 [R, chunk_log2, 32], chunk roots uint8 [K, 32])."""
-    planes, cur = _path_planes_from_leaf_cvs(cur, cur_idx, chunk_log2, rows)
-    return path_planes_to_bytes(planes, cur_idx.shape[0], chunk_log2), cv_planes_to_bytes(cur)
 
 
 def path_planes_to_bytes(planes: Optional[torch.Tensor], k: int, chunk_log2: int) -> np.ndarray:
@@ -464,25 +464,55 @@ def chunk_paths_device(cvs: torch.Tensor, cols, chunk_starts, idx_in_chunk, chun
     return path_planes_to_bytes(planes, k, chunk_log2), cv_planes_to_bytes(roots)
 
 
+def prefix_groups(prefixes: Sequence[bytes]):
+    """Chunks grouped by their leaves' prefix: (order int64 [K], the chunk
+    numbers group after group; bounds [(prefix, a, b)], group by group, whose
+    chunks are order[a:b])."""
+    groups: dict = {}
+    for i, p in enumerate(prefixes):
+        groups.setdefault(p, []).append(i)
+    order = np.array([i for ids in groups.values() for i in ids], dtype=np.int64)
+    bounds, a = [], 0
+    for p, ids in groups.items():
+        bounds.append((p, a, a + len(ids)))
+        a += len(ids)
+    return order, bounds
+
+
+def chunk_tree_planes(vals: torch.Tensor, order: torch.Tensor, bounds, trees: torch.Tensor,
+                      idx_in_chunk: torch.Tensor, chunk_log2: int):
+    """Rebuild K chunk trees on the device and open R leaves in them: launches
+    only, every index already on the device.
+
+    vals: int64 [K, chunk], chunk k's values; its leaves are hashed with the
+    prefix of its group (`order`, int64 [K], and `bounds`, from
+    prefix_groups). Request r opens leaf idx_in_chunk[r] of chunk trees[r]
+    (int64 [R] each). Returns (the sibling nodes int32 [chunk_log2, 8, R] or
+    None, the chunk roots' CV planes [8, K], the opened values int64 [R])."""
+    k, chunk = vals.shape
+    assert chunk == 1 << chunk_log2
+    cur = torch.empty((8, k, chunk), dtype=torch.int32, device=vals.device)
+    for prefix, a, b in bounds:
+        ids = order[a:b]
+        cur[:, ids] = hash_leaves_u64_planes(vals[ids].reshape(-1), prefix).reshape(8, b - a, chunk)
+    planes, roots = _path_planes_from_leaf_cvs(cur.reshape(8, k * chunk), idx_in_chunk, chunk_log2,
+                                               rows=trees)
+    return planes, roots, vals[trees, idx_in_chunk]
+
+
 def _chunk_paths_from_values(vals: torch.Tensor, idx_in_chunk, prefixes: Sequence[bytes],
                              chunk_log2: int):
     """vals: int64 [K, chunk], request i's chunk of column values, hashed
     with prefixes[i]. Returns (paths, roots, values uint64 [K])."""
     k, chunk = vals.shape
-    assert chunk == 1 << chunk_log2 and len(prefixes) == k
+    assert len(prefixes) == k
     dev = vals.device
-    groups: dict = {}
-    for i, p in enumerate(prefixes):
-        groups.setdefault(p, []).append(i)
-    cur = torch.empty((8, k, chunk), dtype=torch.int32, device=dev)
-    for prefix, ids in groups.items():
-        ids_t = _as_index(ids, dev)
-        cv = hash_leaves_u64_planes(vals[ids_t].reshape(-1), prefix)
-        cur[:, ids_t] = cv.reshape(8, len(ids), chunk)
-    idx_t = _as_index(idx_in_chunk, dev)
-    opened = vals[torch.arange(k, device=dev), idx_t]
-    paths8, roots8 = _paths_from_leaf_cvs(cur.reshape(8, k * chunk), idx_t, chunk_log2)
-    return paths8, roots8, opened.cpu().numpy().view(np.uint64)
+    order, bounds = prefix_groups(prefixes)
+    up = _as_index(np.concatenate([order, np.asarray(idx_in_chunk, dtype=np.int64)]), dev)
+    planes, roots, opened = chunk_tree_planes(vals, up[:k], bounds, torch.arange(k, device=dev),
+                                              up[k:], chunk_log2)
+    return (path_planes_to_bytes(planes, k, chunk_log2), cv_planes_to_bytes(roots),
+            opened.cpu().numpy().view(np.uint64))
 
 
 def chunk_paths_from_planes(values: torch.Tensor, col_indices, chunk_starts, idx_in_chunk,

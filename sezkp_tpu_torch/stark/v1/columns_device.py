@@ -1,9 +1,10 @@
 """Device-side column derivation + AIR composition.
 
 Counterpart of sezkp_tpu/stark/v1/columns_device.py. Only the raw movement
-logs (about 2 + tau bytes per row when packed) and per-block constants go up
-to the device; every committed column is derived there (heads are per-block
-cumulative sums, offsets are gathered block constants), and the full AIR
+logs (1 + 4 tau bytes per row, kept packed at 2 + tau) and per-block
+constants go up to the device; every committed column is derived there
+(heads are per-block cumulative sums, offsets are gathered block
+constants), and the full AIR
 composition plus the ZK masks is evaluated there. Bit-identical to
 columns.TraceColumns.build + air.compose_all_rows + the masks (cross-tested),
 and to the JAX package's functions of the same names.
@@ -26,6 +27,7 @@ from ...ops import goldilocks as G
 from ...ops import goldilocks_torch as FT
 from ...ops import ntt as ntt_host
 from ...ops import ntt_torch
+from ...utils import tracing
 from ...utils.tracing import LAUNCH, WAIT, span
 from . import params
 from .air import Alphas
@@ -79,6 +81,19 @@ def _concat_blocks(arrs, total_rows: int) -> np.ndarray:
     return np.concatenate(arrs)
 
 
+def _block_consts(blocks):
+    """Per-block lengths (int64 [nb]), first rows (int32 [nb]) and window
+    lengths and head offsets (u64 [nb, tau] each)."""
+    nb = len(blocks)
+    lens = np.fromiter((b.n_steps for b in blocks), dtype=np.int64, count=nb)
+    block_start = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int32)
+    wins = np.stack([b.windows for b in blocks])  # [nb, tau, 2] int64
+    win_len = (np.abs(wins[:, :, 1] - wins[:, :, 0]) + 1).astype(np.uint64)
+    in_off = np.stack([b.head_in_offsets for b in blocks]).astype(np.uint64)
+    out_off = np.stack([b.head_out_offsets for b in blocks]).astype(np.uint64)
+    return lens, block_start, win_len, in_off, out_off
+
+
 def _host_inputs(blocks) -> dict:
     """Pack movement logs + block structure into small host arrays."""
     n = sum(b.n_steps for b in blocks)
@@ -91,21 +106,13 @@ def _host_inputs(blocks) -> dict:
     wflag = _concat_blocks([b.movement_log.write_flag for b in blocks], n)
     wsym = _concat_blocks([b.movement_log.write_sym for b in blocks], n)
 
-    lens = np.fromiter(
-        (b.n_steps for b in blocks), dtype=np.int64, count=nb
-    )
-    block_start = np.concatenate([[0], np.cumsum(lens[:-1])]).astype(np.int32)
+    lens, block_start, win_len, in_off, out_off = _block_consts(blocks)
     block_of = np.repeat(np.arange(nb, dtype=np.int32), lens)
     is_first = np.zeros(n, dtype=np.uint8)
     is_last = np.zeros(n, dtype=np.uint8)
     nz = lens > 0
     is_first[block_start[nz]] = 1
     is_last[(block_start[nz] + lens[nz] - 1).astype(np.int64)] = 1
-
-    wins = np.stack([b.windows for b in blocks])  # [nb, tau, 2] int64
-    win_len = (np.abs(wins[:, :, 1] - wins[:, :, 0]) + 1).astype(np.uint64)
-    in_off = np.stack([b.head_in_offsets for b in blocks]).astype(np.uint64)
-    out_off = np.stack([b.head_out_offsets for b in blocks]).astype(np.uint64)
     return dict(
         n=n,
         tau=tau,
@@ -121,6 +128,45 @@ def _host_inputs(blocks) -> dict:
         in_off=in_off,
         out_off=out_off,
     )
+
+
+# numpy row types and the torch type each is staged as: a uint16 comes as the
+# int16 of its bits (torch has no uint16 to speak of); other types as int64
+_STAGED = {
+    np.dtype(np.bool_): torch.bool, np.dtype(np.int8): torch.int8,
+    np.dtype(np.uint8): torch.uint8, np.dtype(np.int16): torch.int16,
+    np.dtype(np.uint16): torch.int16, np.dtype(np.int32): torch.int32,
+    np.dtype(np.int64): torch.int64,
+}
+
+
+def _staged_rows(arrs, n: int, pin: bool) -> torch.Tensor:
+    """The blocks' row arrays one after another in one host tensor, pinned
+    when `pin`: the upload is then one DMA, and the buffer comes from and
+    goes back to torch's pinned-memory cache, so a prove of the same shape
+    touches no fresh host page."""
+    dt = np.dtype(arrs[0].dtype)
+    if dt not in _STAGED:
+        dt = np.dtype(np.int64)
+    t = torch.empty((n,) + arrs[0].shape[1:], dtype=_STAGED[dt], pin_memory=pin)
+    np.concatenate(arrs, out=t.numpy().view(dt))
+    return t
+
+
+def _block_rows(lens: np.ndarray, block_start: np.ndarray, n: int, device):
+    """Per-row block index (int32 [n]) and first/last-row flags (uint8 [n]),
+    made on `device` from the block lengths."""
+    nz = lens > 0
+    first = torch.from_numpy(block_start[nz].astype(np.int64)).to(device)
+    last = torch.from_numpy(block_start[nz] + lens[nz] - 1).to(device)
+    block_of = torch.repeat_interleave(
+        torch.arange(len(lens), dtype=torch.int32, device=device),
+        torch.from_numpy(lens).to(device), output_size=n)
+    is_first = torch.zeros(n, dtype=torch.uint8, device=device)
+    is_last = torch.zeros(n, dtype=torch.uint8, device=device)
+    is_first[first] = 1
+    is_last[last] = 1
+    return block_of, is_first, is_last
 
 
 def _from_i64_small(x: torch.Tensor) -> torch.Tensor:
@@ -216,43 +262,41 @@ def _block_table(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray((a & np.uint64(_M32)).astype(np.int64).T)
 
 
-def _cumsum_anchors(tape_mv: np.ndarray, n: int, tau: int, bs: np.ndarray):
+def _pack_rows(tmv: torch.Tensor, wfl: torch.Tensor, wsym: torch.Tensor) -> torch.Tensor:
+    """[n, tau] tape moves, write flags and write symbols on the device ->
+    packed u8 [tau, n], as pack_logs packs them on the host."""
+    pk = (tmv + 1).to(torch.uint8) | (wfl.to(torch.uint8) << 2) | (wsym.to(torch.uint8) << 3)
+    return pk.T.contiguous()
+
+
+def _cumsum_anchors(tape_mv: torch.Tensor, n: int, tau: int, bs: np.ndarray):
     """Global tape-mv csum (exclusive) at each block start and at each
-    2^CARRY_GRAN_LOG2 granule start: (anchor i32 [tau, nb], carry i32
-    [tau, n >> CARRY_GRAN_LOG2]).
+    2^CARRY_GRAN_LOG2 granule start, from the [n, tau] tape moves on their
+    device: (anchor i32 [tau, nb], carry i32 [tau, n >> CARRY_GRAN_LOG2]).
 
     Only anchor rows are needed, so when every anchor position is a multiple
     of a common power-of-two segment size, sum per segment and cumsum the
-    [n/g0, tau] segment totals instead of running a strided axis-0 cumsum
-    over the full [n, tau] slab."""
+    [n/g0, tau] segment totals instead of the full [n, tau] slab."""
     gran = 1 << CARRY_GRAN_LOG2
-    gs = np.arange(0, n, gran, dtype=np.int64)
+    bs = np.asarray(bs, dtype=np.int64)
+    pos = np.concatenate([bs, np.arange(0, n, gran, dtype=np.int64)])
     g0 = gran
     sizes = np.diff(np.append(bs, n))
     if sizes.size and (sizes == sizes[0]).all() and sizes[0] > 0 \
             and (int(sizes[0]) & (int(sizes[0]) - 1)) == 0:
         g0 = min(g0, int(sizes[0]))
     if n % g0 == 0 and (bs % g0 == 0).all() and gran % g0 == 0:
-        seg = np.add.reduce(
-            tape_mv.reshape(n // g0, g0, tau), axis=1, dtype=np.int32,
-        )
-        gcs = np.cumsum(seg, axis=0, dtype=np.int32)  # [n/g0, tau]
-
-        def excl(idx):
-            j = np.maximum(idx // g0 - 1, 0)
-            return np.where(
-                (idx == 0)[None, :], np.int32(0), gcs[j].T
-            ).astype(np.int32)
-
-        return excl(bs), excl(gs)
-    csum = np.cumsum(tape_mv.astype(np.int32), axis=0)  # [n, tau]
-
-    def excl(idx):
-        return np.where(
-            (idx == 0)[None, :], np.int32(0), csum[np.maximum(idx - 1, 0)].T
-        ).astype(np.int32)
-
-    return excl(bs), excl(gs)
+        step = g0
+        csum = tape_mv.reshape(n // g0, g0, tau).sum(1, dtype=torch.int32)
+        csum = csum.cumsum(0, dtype=torch.int32)  # [n/g0, tau]
+    else:
+        step = 1
+        csum = tape_mv.cumsum(0, dtype=torch.int32)  # [n, tau]
+    dev = tape_mv.device
+    j = torch.from_numpy(np.maximum(pos // step - 1, 0)).to(dev)
+    first = torch.from_numpy(pos == 0).to(dev)
+    excl = torch.where(first[:, None], 0, csum[j]).to(torch.int32).T
+    return excl[:, : bs.size].contiguous(), excl[:, bs.size :].contiguous()
 
 
 class DeviceColumns:
@@ -265,36 +309,41 @@ class DeviceColumns:
     of device memory. Re-deriving replays the derivation over the resident
     raw inputs (no host re-upload).
 
+    The host only copies the blocks' logs into one buffer each (pinned on a
+    CUDA device); the packing, its bounds check, the cumsum anchors and the
+    per-row block index and flags are made on the device.
+
     `device=None` means the CUDA card; the CPU only when asked."""
 
     def __init__(self, blocks: Sequence, device=None):
+        device = torch.device("cuda" if device is None else device)
         with span("device_columns.host_inputs"):
-            h = _host_inputs(blocks)
-            n, tau = h["n"], h["tau"]
+            n = sum(b.n_steps for b in blocks)
+            tau = blocks[0].tau if blocks else 0
+            logs = [b.movement_log for b in blocks]
+            pin = device.type == "cuda"
+            rows = [_staged_rows([getattr(m, f) for m in logs], n, pin)
+                    for f in ("input_mv", "tape_mv", "write_flag", "write_sym")]
+            sym_u16 = np.dtype(logs[0].write_sym.dtype) == np.uint16
+            lens, block_start, win_len, in_off, out_off = _block_consts(blocks)
+            tables = (_block_table(win_len), _block_table(in_off), _block_table(out_off))
+        with span("device_columns.upload", WAIT):
+            imv, tmv, wfl, wsy = (r.to(device, non_blocking=True) for r in rows)
             # pack (tape_mv, write_flag, write_sym) into one u8 plane when the
             # symbol fits 4 bits (always for the reference generator; larger
-            # alphabets fall back to the unpacked upload)
-            packed = (
-                n > 0
-                and int(h["wsym"].max(initial=0)) <= 15
-                and int(h["tape_mv"].min(initial=0)) >= -1
-                and int(h["tape_mv"].max(initial=0)) <= 1
-            )
+            # alphabets keep the unpacked logs): one sync reads the bounds
+            packed = n > 0 and bool(torch.stack([
+                tmv.min() >= -1, tmv.max() <= 1, wsy.min() >= 0, wsy.max() <= 15]).all())
             if packed:
-                logs = (np.ascontiguousarray(
-                    pack_logs(h["tape_mv"].T, h["wflag"].T, h["wsym"].T)),)
+                logs = (_pack_rows(tmv, wfl, wsy),)
             else:
-                logs = (
-                    np.ascontiguousarray(h["tape_mv"].T),
-                    np.ascontiguousarray(h["wflag"].astype(np.uint8).T),
-                    np.ascontiguousarray(h["wsym"].astype(np.int32).T),
-                )
-            anchor, carry = _cumsum_anchors(h["tape_mv"], n, tau, h["block_start"])
-            tables = (_block_table(h["win_len"]), _block_table(h["in_off"]),
-                      _block_table(h["out_off"]))
-        with span("device_columns.upload", WAIT):
-            self._init_raw(n, tau, packed, h["input_mv"], logs, h["block_of"], h["is_first"],
-                           h["is_last"], *tables, anchor, carry, device)
+                sym = wsy.to(torch.int32)
+                logs = (tmv.T.contiguous(), wfl.to(torch.uint8).T.contiguous(),
+                        (sym & 0xFFFF if sym_u16 else sym).T.contiguous())
+            anchor, carry = _cumsum_anchors(tmv, n, tau, block_start)
+            block_of, is_first, is_last = _block_rows(lens, block_start, n, device)
+            self._init_raw(n, tau, packed, imv, logs, block_of, is_first, is_last,
+                           *tables, anchor, carry, device)
 
     @classmethod
     def from_raw(cls, n, tau, packed, input_mv, logs, block_of, is_first, is_last,
@@ -317,6 +366,8 @@ class DeviceColumns:
         self._packed = bool(packed)
 
         def up(a):
+            if isinstance(a, torch.Tensor):
+                return a.to(self.device)
             a = np.ascontiguousarray(a)
             if not a.flags.writeable:  # torch refuses to alias read-only memory
                 a = a.copy()
@@ -365,15 +416,18 @@ class DeviceColumns:
     def derive_ranges(self, starts, length: int) -> torch.Tensor:
         """[S, C, length] columns of the row ranges starting at `starts`
         (each a multiple of 2^CARRY_GRAN_LOG2), without materializing the
-        full matrix. Bit-identical to slices of `.planes`."""
+        full matrix. Bit-identical to slices of `.planes`. Host `starts` are
+        checked and uploaded; an int64 tensor on the device is the caller's
+        to check, and then the call only launches."""
         if length < (1 << CARRY_GRAN_LOG2):
             raise ValueError("range length below the carry granularity")
-        starts = np.asarray(starts, dtype=np.int64)
-        if np.any(starts % (1 << CARRY_GRAN_LOG2)) or np.any(starts < 0) \
-                or np.any(starts + length > self.n):
-            raise ValueError("range starts must be granule-aligned and inside the trace")
-        rows = torch.from_numpy(starts).to(self.device)[:, None] \
-            + torch.arange(length, device=self.device)[None, :]
+        if not isinstance(starts, torch.Tensor):
+            starts = np.asarray(starts, dtype=np.int64)
+            if np.any(starts % (1 << CARRY_GRAN_LOG2)) or np.any(starts < 0) \
+                    or np.any(starts + length > self.n):
+                raise ValueError("range starts must be granule-aligned and inside the trace")
+            starts = torch.from_numpy(starts).to(self.device)
+        rows = starts[:, None] + torch.arange(length, device=self.device)[None, :]
         return self._derive(rows)
 
     def to_host(self) -> np.ndarray:
@@ -454,10 +508,13 @@ def compose_slabs(cols, tau: int, a, mc, xs, mv_after, head_after, seg_log2: Opt
     [tau, seg] temporaries; same output either way. A row's next-row values
     are the slab's next column, and for the last row mv_after / head_after
     ([tau, 1]): the slab's first column where the trace wraps, the next
-    rank's first column in a sharded prove."""
+    rank's first column in a sharded prove. Slab by slab, it adds the slabs
+    to the recorded prove's counter `compose.slabs` (utils/tracing.count)."""
     n = cols.shape[1]
     seg = n if seg_log2 is None else min(n, 1 << seg_log2)
     assert n % seg == 0
+    if seg_log2 is not None:
+        tracing.count("compose.slabs", n // seg)
     out = torch.empty(n, dtype=torch.int64, device=cols.device)
     h0, m0 = 3 + 3 * tau, 3  # head and mv rows in all_labels order
     for s in range(0, n, seg):

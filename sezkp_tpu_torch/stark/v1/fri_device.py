@@ -38,6 +38,7 @@ import torch
 
 from ...ops import blake3_torch as BT
 from ...ops import goldilocks_torch as FT
+from ...utils import tracing
 from ...utils.tracing import LAUNCH, WAIT, span
 from .proof import FriQuery
 
@@ -76,8 +77,10 @@ def _chunk_tops(vals: torch.Tensor, seg_log2: int) -> torch.Tensor:
     """Field values [m] -> the tree's levels from the 2^CHUNK_LOG2-leaf chunk
     roots up, side by side ([8, 2K - 1], K = m >> CHUNK_LOG2, the root last).
     The chunk roots are hashed 2^seg_log2 leaves at a time, so the leaf
-    messages and CVs of one segment at most are alive."""
-    roots = BT.columns_commit_roots_scan(vals[None], [b""], CHUNK_LOG2, seg_log2=seg_log2)[0]
+    messages and CVs of one segment at most are alive; the segments count
+    to the recorded prove's `fri.chunk_tops_segments`."""
+    roots = BT.columns_commit_roots_scan(vals[None], [b""], CHUNK_LOG2, seg_log2=seg_log2,
+                                         counter="fri.chunk_tops_segments")[0]
     return torch.cat(_levels_up(roots), dim=1)
 
 
@@ -354,6 +357,8 @@ class DeviceFri:
         gathered from the resident layer values and hashed once, all layers
         in one batch: one K1 launch for their leaves and one a parent level.
         Bit-identical to fri.fri_open_query."""
+        if not fri_rows:
+            return []
         mask = (1 << CHUNK_LOG2) - 1
         req_seq: Dict[tuple, int] = {}  # (layer, index) -> request number
 
@@ -376,22 +381,32 @@ class DeviceFri:
             chunk_row: Dict[tuple, int] = {}  # (layer, chunk start) -> row of `chunks`
             for layer, idx in sorted(req_seq):
                 chunk_row.setdefault((layer, idx & ~mask), len(chunk_row))
+            arrays = [np.array([s for _, s in chunk_row], dtype=np.int64),
+                      np.array([chunk_row[(layer, idx & ~mask)] for layer, idx in req_seq],
+                               dtype=np.int64),
+                      np.array([idx & mask for _, idx in req_seq], dtype=np.int64)]
+            layers = sorted({l for l, _ in chunk_row})
+            per_layer = [sum(1 for l, _ in chunk_row if l == layer) for layer in layers]
         dev = self._vals[0].device
-        # uploads of the chunk starts and indices, gathers, the chunks' trees
-        # and the pull of their paths and values
+        # one upload of the chunk starts and the requests' chunks and leaves,
+        # then a gather a layer
         with span("fri_openings.gather", WAIT):
+            starts, rows, idxs = torch.split(BT._as_index(np.concatenate(arrays), dev),
+                                             [len(a) for a in arrays])
             offs = torch.arange(mask + 1, device=dev)[None, :]
-            parts = [
-                self._vals[layer][BT._as_index([s for l, s in chunk_row if l == layer], dev)[:, None] + offs]
-                for layer in sorted({l for l, _ in chunk_row})
-            ]
-            if parts:
-                chunks = torch.cat(parts)  # [K, 2^CHUNK_LOG2]
-                rows = BT._as_index([chunk_row[(layer, idx & ~mask)] for layer, idx in req_seq], dev)
-                idxs = BT._as_index([idx & mask for _, idx in req_seq], dev)
-                cvs = BT.hash_leaves_u64_planes(chunks.reshape(-1), b"")
-                paths8, _ = BT._paths_from_leaf_cvs(cvs, idxs, CHUNK_LOG2, rows=rows)
-                values = FT.unpack(chunks[rows, idxs])
+            chunks = torch.cat([
+                self._vals[layer][part[:, None] + offs]
+                for layer, part in zip(layers, torch.split(starts, per_layer))
+            ])  # [K, 2^CHUNK_LOG2]
+        # the chunks' trees, rebuilt
+        with span("fri_openings.rehash", LAUNCH, sync=True):
+            cvs = BT.hash_leaves_u64_planes(chunks.reshape(-1), b"")
+            planes, _ = BT._path_planes_from_leaf_cvs(cvs, idxs, CHUNK_LOG2, rows=rows)
+            opened = chunks[rows, idxs]
+        tracing.count("openings.rebuilt_chunks", len(chunk_row))
+        with span("fri_openings.pull", WAIT):
+            paths8 = BT.path_planes_to_bytes(planes, len(req_seq), CHUNK_LOG2)
+            values = FT.unpack(opened)
 
         def value_bytes(ref) -> bytes:
             if ref[0] == "hostlayer":

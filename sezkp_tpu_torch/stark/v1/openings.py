@@ -34,6 +34,7 @@ import torch
 from ...ops import blake3_torch as BT
 from ...ops import goldilocks as G
 from ...ops import goldilocks_torch as FT
+from ...utils import tracing
 from ...utils.tracing import LAUNCH, WAIT, span
 from . import params
 from .columns import all_labels
@@ -86,6 +87,7 @@ class ColumnEngine:
         self._dev = False
         self._dev_cvs = None  # int32 [C, 8, n] leaf CV planes (device-resident)
         self._label_idx = {lb: i for i, lb in enumerate(self.labels)}
+        self._prefixes = [_label_prefix(lb) for lb in self.labels]
         self._croots: Dict[str, np.ndarray] = {}
         self._outer: Dict[str, MerkleTree] = {}
 
@@ -114,7 +116,7 @@ class ColumnEngine:
         return [ColumnRoot(lb, self._commit(lb).root()) for lb in self.labels]
 
     def _build_device(self) -> None:
-        prefixes = [_label_prefix(lb) for lb in self.labels]
+        prefixes = self._prefixes
         if self._dc is None:
             with span("commit.stack"):
                 vals = np.stack([self.tc.column_by_label(lb) for lb in self.labels])
@@ -130,8 +132,10 @@ class ColumnEngine:
                     )
                 else:
                     cvs = None
-                    roots = BT.columns_commit_roots_scan(self._dc.planes, prefixes,
-                                                         self.chunk_log2)
+                    with span("commit.scan", LAUNCH):
+                        roots = BT.columns_commit_roots_scan(self._dc.planes, prefixes,
+                                                             self.chunk_log2,
+                                                             counter="commit.scan_segments")
         with span("commit.pull_roots", WAIT):
             croots = BT.croots_to_host(roots)
         with span("commit.outer_trees"):
@@ -184,20 +188,33 @@ class ColumnEngine:
             if self._dc is None:  # host columns: the values are read on the host
                 values = [self.tc.column_by_label(lb)[row] for lb, row in requests]
         else:
-            # no resident CVs: recompute each queried chunk's tree from values
+            # no resident CVs: rebuild each distinct queried (column, chunk)
+            # tree once, from the column matrix while it is resident, else
+            # from the queried ranges derived anew from the raw inputs
             with span("air_openings.recompute", WAIT):
-                prefixes = [_label_prefix(lb) for lb, _ in requests]
-                if self._dc.planes_resident:
-                    paths, _roots, values = BT.chunk_paths_from_planes(
-                        self._dc.planes, cols, starts, idxs, prefixes, self.chunk_log2
-                    )
+                keys, trees = np.unique(cols * self._n + starts, return_inverse=True)
+                k_cols, k_starts = keys // self._n, keys % self._n
+                tracing.count("openings.rebuilt_chunks", len(keys))
+                order, bounds = BT.prefix_groups([self._prefixes[c] for c in k_cols])
+                resident = self._dc.planes_resident
+                if resident:  # a chunk's row of the planes' [C * n / chunk, chunk] view
+                    uniq, src = np.zeros(0, np.int64), keys // chunk
+                else:  # a chunk's row of the derived ranges' [S * C, chunk] view
+                    uniq, sel = np.unique(k_starts, return_inverse=True)
+                    src = sel.reshape(-1) * len(self.labels) + k_cols
+                arrays = [uniq, src, order, trees.reshape(-1), idxs]
+                uniq_t, src_t, order_t, trees_t, idxs_t = torch.split(  # one upload
+                    BT._as_index(np.concatenate(arrays), self.device), [len(a) for a in arrays])
+                if resident:
+                    table = self._dc.planes.reshape(-1, chunk)
                 else:
-                    # derive ONLY the queried chunks' columns from the raw inputs
-                    uniq, sel = np.unique(starts, return_inverse=True)
-                    ranges = self._dc.derive_ranges(uniq, chunk)
-                    paths, _roots, values = BT.chunk_paths_from_ranges(
-                        ranges, sel, cols, idxs, prefixes, self.chunk_log2
-                    )
+                    with span("air_openings.derive_ranges", LAUNCH, sync=True):
+                        table = self._dc.derive_ranges(uniq_t, chunk).reshape(-1, chunk)
+                with span("air_openings.rehash", LAUNCH, sync=True):
+                    planes, _roots, opened = BT.chunk_tree_planes(
+                        table[src_t], order_t, bounds, trees_t, idxs_t, self.chunk_log2)
+                paths = BT.path_planes_to_bytes(planes, len(requests), self.chunk_log2)
+                values = FT.unpack(opened)
 
         with span("air_openings.assemble"):
             out: List[Opening] = []

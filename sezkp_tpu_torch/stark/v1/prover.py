@@ -110,9 +110,12 @@ def _deep_lde_host(base_vals: np.ndarray, blow_log2: int, shift: int, z: int) ->
 
 def _release_planes_if_large(dc: DeviceColumns, release_planes_bytes: int) -> None:
     """Drop the [C, n] device column matrix when it reaches the budget (one
-    rule for the release before the LDE and the one after the openings)."""
-    if dc.planes_resident and 8 * len(dc.labels) * dc.n >= release_planes_bytes:
+    rule for the release before the LDE and the one after the openings), and
+    add its bytes to the recorded prove's counter `planes.released_bytes`."""
+    size = 8 * len(dc.labels) * dc.n
+    if dc.planes_resident and size >= release_planes_bytes:
         dc.release_planes()
+        tracing.count("planes.released_bytes", size)
 
 
 @tracing.records
@@ -151,7 +154,14 @@ def prove_v1(
     2^`fri_chunked_min_log2` up (fri_device.DeviceFri). `timings`, when a
     dict, receives wall seconds per stage (`fri_commit_chunked` in place of
     `fri_commit` when FRI took its chunked mode), and the prove's spans are
-    recorded (utils/tracing.py: a span per stage, sub-spans inside).
+    recorded (utils/tracing.py: a span per stage, sub-spans inside) with the
+    counters of the memory-bounded route: `commit.scan_segments` (segments
+    of the roots-only column commitments), `compose.slabs` (slabs of the
+    composition), `fri.chunk_tops_segments` (segments of the chunked FRI's
+    layer hashing), `openings.rebuilt_chunks` (distinct (column, chunk) and
+    (FRI layer, chunk) trees the openings rebuilt) and
+    `planes.released_bytes` (bytes of the column matrix released); a
+    counter the prove's route never reaches is not recorded.
 
     `engine` injects a column-commitment engine (the sharded one,
     parallel/engine.py) and takes the host-columns route; `tc` optionally

@@ -53,8 +53,9 @@ def partition_trace(tf: TraceFile, b: int) -> List[BlockSummary]:
         off_out = cur - min_pos
 
         # adjacent read-only views into the trace's contiguous log: the
-        # prover's _host_inputs re-assembles the full log zero-copy from
-        # them (columns_device._concat_blocks) instead of re-copying T rows
+        # sharded prover's _host_inputs re-assembles the full log zero-copy
+        # from them (columns_device._concat_blocks) instead of re-copying T
+        # rows
         block_ml = MovementLog(
             input_mv=ml.input_mv[lo:hi],
             tape_mv=ml.tape_mv[lo:hi],

@@ -8,7 +8,14 @@ prove runs with a `timings` dict (``proving``, ``records``); elsewhere
 ``span`` returns one shared no-op context manager: no clock read, no sync,
 no string, no allocation. Recorded spans go to a bounded ring
 (``Recorder``, 2^16 spans), which counts what it drops; readers read them
-after the run (``RECORDER.proves``, ``cover``).
+after the run (``RECORDER.proves``, ``cover``, ``counters``).
+
+Counters (``count``): integers a prove adds up while it runs (segments a
+scan ran, chunk trees an opening rebuilt, bytes released). They are kept in
+the open prove's record, with no clock read and no sync, and go to the ring
+when the prove closes, one entry of kind ``count`` a name (a zero-length
+span holding the total in ``value``), so the ring drops them as it drops
+spans. Outside a recorded prove ``count`` does nothing.
 
 Kinds say what the host does inside a span:
 
@@ -40,6 +47,7 @@ from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Sequenc
 log = logging.getLogger("sezkp_tpu_torch")
 
 HOST, LAUNCH, WAIT = "host", "launch", "wait"
+COUNT = "count"
 RING = 1 << 16
 
 _initialized = False
@@ -62,7 +70,9 @@ def init_tracing() -> None:
 
 class Span(NamedTuple):
     """One closed span. `parent` and `seq` are sequence numbers of the
-    recorder (-1: no parent); `prove` is the id of the prove it belongs to."""
+    recorder (-1: no parent); `prove` is the id of the prove it belongs to.
+    A counter's entry is of kind COUNT, begins and ends when its prove
+    closes, lies under the prove's span and holds its total in `value`."""
 
     name: str
     kind: str
@@ -71,6 +81,7 @@ class Span(NamedTuple):
     parent: int
     prove: int
     seq: int
+    value: int = 0
 
 
 class Recorder:
@@ -111,7 +122,7 @@ class _Open:
     records when it closes."""
 
     __slots__ = ("rec", "prove", "under", "seq", "parent", "name", "kind", "sync", "begin",
-                 "token")
+                 "token", "counts")
 
 
 # the innermost open span of this context, None when nothing is recorded
@@ -131,7 +142,7 @@ class _Span(_Open):
     __slots__ = ()
 
     def __init__(self, cur: _Open, name: str, kind: str, sync: bool):
-        self.rec, self.prove, self.parent = cur.rec, cur.prove, cur.under
+        self.rec, self.prove, self.parent, self.counts = cur.rec, cur.prove, cur.under, cur.counts
         self.name, self.kind, self.sync = name, kind, sync
 
     def __enter__(self):
@@ -158,6 +169,13 @@ def span(name: str, kind: str = HOST, sync: bool = False):
     return _Span(cur, name, kind, sync)
 
 
+def count(name: str, n: int) -> None:
+    """Add `n` to the running prove's counter `name`; nothing outside one."""
+    cur = _CURRENT.get()
+    if cur is not None:
+        cur.counts[name] = cur.counts.get(name, 0) + n
+
+
 @contextlib.contextmanager
 def proving(timings: Optional[dict], recorder: Optional[Recorder] = None) -> Iterator[None]:
     """Record the spans of one prove, under a top-level span `prove`, when
@@ -168,7 +186,7 @@ def proving(timings: Optional[dict], recorder: Optional[Recorder] = None) -> Ite
     rec = RECORDER if recorder is None else recorder
     top = _Open()
     top.rec, top.prove, top.seq, top.name = rec, next(rec._prove), next(rec._seq), None
-    top.under = top.seq
+    top.under, top.counts = top.seq, {}
     token = _CURRENT.set(top)
     begin = time.perf_counter()
     try:
@@ -176,6 +194,8 @@ def proving(timings: Optional[dict], recorder: Optional[Recorder] = None) -> Ite
     finally:
         end = time.perf_counter()
         _CURRENT.reset(token)
+        for name, n in top.counts.items():
+            rec.add(Span(name, COUNT, end, end, top.seq, top.prove, next(rec._seq), n))
         rec.add(Span("prove", HOST, begin, end, -1, top.prove, top.seq))
 
 
@@ -227,6 +247,15 @@ class Stages:
 
 
 # ---------------------------- reading the spans -----------------------------
+
+
+def counters(spans: Sequence[Span]) -> Dict[str, int]:
+    """The counters' totals over `spans` (every prove among them)."""
+    out: Dict[str, int] = {}
+    for s in spans:
+        if s.kind == COUNT:
+            out[s.name] = out.get(s.name, 0) + s.value
+    return out
 
 
 def cover(spans: Sequence[Span], intervals: Sequence[Tuple[float, float]],

@@ -117,7 +117,8 @@ def test_packed_and_unpacked_log_uploads_agree():
     assert np.array_equal(wfl.numpy(), h["wflag"].T.astype(np.uint8))
     assert np.array_equal(wsy.numpy(), h["wsym"].T.astype(np.int32))
 
-    anchor, carry = CD._cumsum_anchors(h["tape_mv"], h["n"], h["tau"], h["block_start"])
+    anchor, carry = CD._cumsum_anchors(torch.from_numpy(h["tape_mv"].copy()), h["n"], h["tau"],
+                                       h["block_start"])
     unpacked = CD.DeviceColumns.from_raw(
         h["n"], h["tau"], False, h["input_mv"], _raw_unpacked(h), h["block_of"],
         h["is_first"], h["is_last"], CD._block_table(h["win_len"]),
@@ -141,16 +142,53 @@ def test_packed_and_unpacked_log_uploads_agree():
 def test_anchors_by_segment_sums_equal_the_full_cumsum():
     blocks = partition_trace(generate_trace(1 << 12, 2), 256)
     h = CD._host_inputs(blocks)
-    anchor, carry = CD._cumsum_anchors(h["tape_mv"], h["n"], h["tau"], h["block_start"])
+    tmv = torch.from_numpy(h["tape_mv"].copy())
+    anchor, carry = CD._cumsum_anchors(tmv, h["n"], h["tau"], h["block_start"])
     csum = np.cumsum(h["tape_mv"].astype(np.int64), axis=0)
     excl = np.vstack([np.zeros((1, h["tau"]), np.int64), csum])
-    assert np.array_equal(anchor, excl[h["block_start"]].T)
-    assert np.array_equal(carry, excl[np.arange(0, h["n"], 1024)].T)
+    assert anchor.dtype == carry.dtype == torch.int32
+    assert np.array_equal(anchor.numpy(), excl[h["block_start"]].T)
+    assert np.array_equal(carry.numpy(), excl[np.arange(0, h["n"], 1024)].T)
     # block starts off the segment grid take the full-cumsum form
     ragged = np.array([0, 100, 1000, 3000], dtype=np.int32)
-    a2, c2 = CD._cumsum_anchors(h["tape_mv"], h["n"], h["tau"], ragged)
-    assert np.array_equal(a2, excl[ragged].T)
-    assert np.array_equal(c2, carry)
+    a2, c2 = CD._cumsum_anchors(tmv, h["n"], h["tau"], ragged)
+    assert np.array_equal(a2.numpy(), excl[ragged].T)
+    assert np.array_equal(c2.numpy(), carry.numpy())
+
+
+def test_device_staged_inputs_equal_the_host_ones():
+    """The raw inputs DeviceColumns stages and derives on its device are the
+    host arrays of _host_inputs: the packed plane, the block rows and the
+    cumsum anchors."""
+    blocks = partition_trace(generate_trace(1 << 12, 8), 512)
+    h = CD._host_inputs(blocks)
+    dc = CD.DeviceColumns(blocks, "cpu")
+    assert dc._packed
+    (pk,) = dc._logs
+    assert np.array_equal(pk.numpy(), CD.pack_logs(h["tape_mv"].T, h["wflag"].T, h["wsym"].T))
+    assert np.array_equal(dc._input_mv.numpy(), h["input_mv"])
+    assert dc._block_of.dtype == torch.int32
+    assert np.array_equal(dc._block_of.numpy(), h["block_of"])
+    assert np.array_equal(dc._is_first.numpy(), h["is_first"])
+    assert np.array_equal(dc._is_last.numpy(), h["is_last"])
+    for got, want in zip(dc._tables[:3], ("win_len", "in_off", "out_off")):
+        assert np.array_equal(got.numpy(), CD._block_table(h[want]))
+
+
+@pytest.mark.parametrize("t,b,tau", [(1 << 12, 1000, 2), (1 << 12, 300, 8), (3000, 256, 3)],
+                         ids=["T12_b1000_tau2", "T12_b300_tau8", "T3000_b256_tau3"])
+def test_ragged_blocks_derive_the_host_columns(t, b, tau):
+    """Blocks off the power-of-two grid (and a trace off it) take the full
+    cumsum on the device; the columns still equal the host's."""
+    blocks = partition_trace(generate_trace(t, tau), b)
+    tc = TraceColumns.build(blocks)
+    host = np.stack([tc.column_by_label(lb) for lb in all_labels(tau)])
+    dc = CD.DeviceColumns(blocks, "cpu")
+    assert np.array_equal(dc.to_host(), host)
+    starts = [0, 1024] if t >= 2048 else [0]
+    got = dc.derive_ranges(starts, 1024)
+    for k, s in enumerate(starts):
+        assert torch.equal(got[k], dc.planes[:, s : s + 1024])
 
 
 def test_from_i64_small_edges():

@@ -256,3 +256,201 @@ def test_readers_give_none_after_a_drop(monkeypatch, name):
     assert rec.dropped == 10 and rec.dropped_prove == 1
     monkeypatch.setattr(tracing, "RECORDER", rec)
     assert _reader(name)(_run(EVENTS)) is None
+
+
+# ----------------------------- counters --------------------------------------
+
+
+def test_counters_add_up_in_the_prove_and_close_with_it():
+    rec = Recorder()
+    for k in (1, 2):
+        with tracing.proving({}, rec):
+            tracing.count("a", 3 * k)
+            with tracing.span("outer", WAIT):
+                with tracing.span("inner", LAUNCH):
+                    tracing.count("a", 1)
+                    tracing.count("b", 7)
+    spans = rec.spans()
+    assert [s.name for s in spans] == ["inner", "outer", "a", "b", "prove"] * 2
+    for k, p in ((1, 0), (2, 1)):
+        inner, outer, a, b, prove = spans[5 * p : 5 * p + 5]
+        assert (a.kind, b.kind) == (tracing.COUNT, tracing.COUNT)
+        assert (a.value, b.value) == (3 * k + 1, 7)
+        assert a.parent == b.parent == prove.seq and a.prove == b.prove == prove.prove == p
+        assert a.begin == a.end == b.begin == b.end == prove.end
+    assert len({s.seq for s in spans}) == 10
+    assert tracing.counters(spans) == {"a": 4 + 7, "b": 14}
+    # counter entries are of no length: the spans' cover does not see them
+    assert tracing.cover(spans, [(-1e9, 1e9)], key=lambda s: s.name).keys() == {
+        "inner", "outer", "prove"}
+
+
+def test_a_dropped_counter_drops_its_prove():
+    rec = Recorder(capacity=3)
+    for _ in range(2):
+        with tracing.proving({}, rec):
+            tracing.count("a", 1)
+            with tracing.span("x"):
+                pass
+    # six entries through a ring of three: prove 0's three are gone
+    assert rec.dropped == 3 and rec.dropped_prove == 0
+    assert tracing.counters(rec.proves(-1e9, 1e9)) == {"a": 1}
+    rec = Recorder(capacity=2)
+    with tracing.proving({}, rec):
+        tracing.count("a", 1)
+        with tracing.span("x"):
+            pass
+    assert rec.proves(-1e9, 1e9) is None
+
+
+def test_count_is_a_noop_when_off(monkeypatch):
+    calls = []
+    clock = time.perf_counter
+    monkeypatch.setattr(time, "perf_counter", lambda: calls.append(1) or clock())
+    before = len(tracing.RECORDER.spans())
+    for _ in range(100):
+        assert tracing.count("a", 1) is None
+        with tracing.span("b"):
+            tracing.count("a", 1)
+    assert calls == [] and len(tracing.RECORDER.spans()) == before
+
+
+# the program's memory-bounded branches at T = 2^13: roots-only commitments,
+# the column matrix released, slab composition, chunked FRI
+BOUNDED = dict(cv_budget_bytes=0, release_planes_bytes=0, fri_chunked_min_log2=12,
+               compose_scan_min_log2=0)
+CHUNK = 1 << 10      # rows of a column chunk
+FRI_CHUNK = 1 << 11  # leaves of a FRI chunk
+
+
+@pytest.fixture(scope="module")
+def bounded(traced):
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        blocks = partition_trace(generate_trace(1 << 13, 2), 256)
+        root = commit_blocks(blocks).root
+        rec = Recorder()
+        timings = {}
+        with tracing.proving(timings, rec):
+            proof = prove_v1(blocks, root, device="cpu", timings=timings, **BOUNDED)
+        quiet = prove_v1(blocks, root, device="cpu", **BOUNDED)
+        return proof, quiet, timings, rec.spans()
+    finally:
+        torch.set_num_threads(n)
+
+
+def test_bounded_prove_gives_the_same_bytes_traced_or_not(traced, bounded):
+    from sezkp_tpu_torch.stark.v1 import proof as proof_mod
+
+    plain = traced[0]
+    proof, quiet, timings, _ = bounded
+    assert proof_mod.encode_proof(proof) == proof_mod.encode_proof(quiet) == plain.proof_bytes
+    assert list(timings) == [s if s != "fri_commit" else "fri_commit_chunked" for s in STAGES]
+
+
+def test_bounded_sub_spans_lie_under_their_stages_with_their_kinds(bounded):
+    _, _, _, spans = bounded
+    by_seq = {s.seq: s for s in spans}
+
+    def one(name):
+        (s,) = [s for s in spans if s.name == name]
+        return s, by_seq[s.parent]
+
+    want = {
+        "commit.scan": (LAUNCH, "commit.hash"),
+        "commit.hash": (LAUNCH, "commit"),
+        "air_openings.recompute": (WAIT, "air_openings"),
+        "air_openings.derive_ranges": (LAUNCH, "air_openings.recompute"),
+        "air_openings.rehash": (LAUNCH, "air_openings.recompute"),
+        "fri_openings.gather": (WAIT, "fri_openings"),
+        "fri_openings.rehash": (LAUNCH, "fri_openings"),
+        "fri_openings.pull": (WAIT, "fri_openings"),
+    }
+    for name, (kind, parent) in want.items():
+        s, p = one(name)
+        assert (s.kind, p.name) == (kind, parent)
+        assert p.begin <= s.begin <= s.end <= p.end
+    gather, rehash, pull = (one(f"fri_openings.{x}")[0] for x in ("gather", "rehash", "pull"))
+    assert gather.end <= rehash.begin and rehash.end <= pull.begin
+    derive, again = one("air_openings.derive_ranges")[0], one("air_openings.rehash")[0]
+    assert derive.end <= again.begin
+    assert not any(s.name in ("air_openings.upload", "air_openings.paths") for s in spans)
+
+
+def test_bounded_counters_are_what_the_shapes_give(bounded):
+    from sezkp_tpu_torch.stark.v1.columns import all_labels
+
+    proof, _, _, spans = bounded
+    n, tau, lde_log2 = 1 << 13, 2, 16
+    cols = len(all_labels(tau))
+    # the AIR openings' distinct (column, chunk) trees: every column at the
+    # queried row, the moves and heads at the next row too
+    air = set()
+    for q in proof.queries:
+        nxt = (q.row + 1) % n
+        air |= {(c, q.row // CHUNK) for c in range(cols)}
+        air |= {(c, nxt // CHUNK) for c in range(3, 3 + tau)}          # mv_r
+        air |= {(c, nxt // CHUNK) for c in range(3 + 3 * tau, 3 + 4 * tau)}  # head_r
+    # the FRI openings' distinct (layer, chunk) trees, in the device layers
+    dev_layers = lde_log2 - 11
+    fri = set()
+    for fq in proof.fri_queries:
+        for layer in range(dev_layers + 1):
+            idx, half = fq.positions[layer], 1 << (lde_log2 - layer - 1)
+            fri |= {(layer, idx // FRI_CHUNK), (layer, (idx ^ half) // FRI_CHUNK)}
+    assert tracing.counters(spans) == {
+        "commit.scan_segments": cols * n // min(n, 1 << 21),
+        "compose.slabs": n // (1 << 12),
+        "planes.released_bytes": 8 * cols * n,
+        "fri.chunk_tops_segments": dev_layers + 1,
+        "openings.rebuilt_chunks": len(air) + len(fri),
+    }
+
+
+def test_the_resident_route_records_no_bounded_counter(traced):
+    _, _, _, spans = traced
+    assert tracing.counters(spans) == {}
+    assert not {s.name for s in spans} & {"commit.scan", "air_openings.recompute",
+                                         "fri_openings.rehash"}
+
+
+def _bounded_spans(rec):
+    # a prove before the window, one inside it, one after it
+    for prove, t0 in ((0, -20.0), (1, 0.0), (2, 10.0)):
+        seq = 10 * prove
+        for s in (
+            Span("air_openings.recompute", WAIT, t0 + 2, t0 + 3, seq + 1, prove, seq + 2),
+            Span("air_openings", WAIT, t0 + 1, t0 + 4, seq, prove, seq + 1),
+            Span("fri_openings.rehash", LAUNCH, t0 + 5, t0 + 5.5, seq + 3, prove, seq + 4),
+            Span("fri_openings", WAIT, t0 + 4, t0 + 6, seq, prove, seq + 3),
+            Span("openings.rebuilt_chunks", tracing.COUNT, t0 + 9, t0 + 9, seq, prove, seq + 5,
+                 100),
+            Span("commit.scan_segments", tracing.COUNT, t0 + 9, t0 + 9, seq, prove, seq + 6, 472),
+            Span("compose.slabs", tracing.COUNT, t0 + 9, t0 + 9, seq, prove, seq + 7, 32),
+            Span("fri.chunk_tops_segments", tracing.COUNT, t0 + 9, t0 + 9, seq, prove, seq + 8,
+                 137),
+            Span("prove", HOST, t0 + 1, t0 + 9, -1, prove, seq),
+        ):
+            rec.add(s)
+
+
+@pytest.mark.parametrize("name, want", [
+    ("recompute_s.stark", 1.5), ("rebuilt_chunks.stark", 100), ("scan_segments.stark", 641),
+])
+def test_bounded_readers_on_a_hand_built_run(monkeypatch, name, want):
+    rec = Recorder()
+    _bounded_spans(rec)
+    monkeypatch.setattr(tracing, "RECORDER", rec)
+    read = _reader(name)
+    assert read(_run(EVENTS)) == pytest.approx(want)
+    assert read(_run(None)) is None  # no device trace
+    small = Recorder(capacity=12)  # 27 entries: prove 0 and part of prove 1 dropped
+    _bounded_spans(small)
+    monkeypatch.setattr(tracing, "RECORDER", small)
+    assert read(_run(EVENTS)) is None
+    monkeypatch.setattr(tracing, "RECORDER", Recorder())
+    _hand_spans(tracing.RECORDER)  # a prove with none of the reader's spans or counters
+    assert read(_run(EVENTS)) is None
