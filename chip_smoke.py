@@ -38,13 +38,21 @@ Phases (any failure ends the run with a non-zero exit code):
                 issued and replayed from a CUDA graph. K12 (the DEEP divide)
                 at 2^13 + 3 random points, over the LDE's coset at 2^20 and
                 2^23 and at 2^27 points, z off the coset and on it, one
-                launch a call; timed at 2^23 and 2^27.
+                launch a call; timed at 2^23 and 2^27. K13 (the chunk roots
+                of whole columns) at the shapes of a prove (the 59 columns of
+                T = 2^20 with their leaf CVs, of T = 2^24 roots only, a FRI
+                layer of 2^27) against its plain version, the eager
+                composition on K1, and at both chunk depths it takes, with a
+                row selection and rows 8 bytes off a 16-byte boundary,
+                against its schedule in tensor code; timed beside its bound,
+                the plain tensor code and the eager composition.
   prove         T = 2^20, b = 512, tau = 8 on the device-resident route:
                 generate_trace -> partition_trace -> commit_blocks ->
                 StarkV1.prove (on the card) -> StarkV1.verify; a tampered
                 proof is rejected; a second prove is byte-identical; the
-                launch counts of K1-K4 over the prove are > 0 and K12's is
-                1; wall time per
+                launch counts of K1-K4 over the prove are > 0, K12's is
+                1 and K13's one for the columns' commitment and one for
+                each chunked FRI layer; wall time per
                 stage and peak device memory. Then one prove on the
                 host-columns route, whose bytes must be the same, and one
                 with the chunked tops-only FRI forced
@@ -285,7 +293,7 @@ def phase_env(state) -> None:
     t1 = time.time()
     # ptxas's registers, spills and shared memory of K4, K5, K8-K11, built beside the library
     ptxas = _ptxas_start(("ntt_last.cu", "ntt_small.cu", "i8_gemm.cu", "gl_digits.cu", "digit_dft.cu",
-                          "digit_dft_last.cu", "deep_divide.cu"))
+                          "digit_dft_last.cu", "deep_divide.cu", "blake3_chunk_roots.cu"))
     _kernels.lib()
     log(f"[env] set-up: native host lib {t1 - t0:.1f} s, CUDA kernels {_kernels.build_seconds:.1f} s")
     for func, usage in sorted(_ptxas_usage(ptxas)[1].items()):
@@ -310,6 +318,97 @@ def _words_rand(n, gen, dev):
     """Random int32 [16, n] message words (any 32-bit pattern)."""
     w = torch.randint(0, 1 << 32, (16, n), generator=gen, device=dev, dtype=torch.int64)
     return w.to(torch.int32)
+
+
+def _kernel_chunk_roots(kern, gen, dev) -> None:
+    """K13 blake3_chunk_roots against its plain version (the eager
+    composition on K1, which the prove ran before K13) on the same tensors at
+    the shapes of a prove: the 59 columns of T = 2^20 with their leaf CVs
+    (chunk 2^10), the 59 of T = 2^24 roots only, a FRI layer of 2^27 (chunk
+    2^11, the empty prefix); and against its schedule in tensor code
+    (chunk_roots_model) at both chunk depths it takes, with a row selection,
+    with and without CVs, on rows 16-byte aligned and 8 bytes off. Timed
+    beside its bound, the plain tensor code (at T = 2^20) and the eager
+    composition."""
+    from sezkp_tpu_torch.ops import blake3_torch as BT
+    from sezkp_tpu_torch.stark.v1.columns import all_labels
+    from sezkp_tpu_torch.stark.v1.openings import _label_prefix
+
+    labels = [_label_prefix(lb) for lb in all_labels(8)]
+    err = 0
+
+    def compare(got, want, what):
+        nonlocal err
+        torch.cuda.synchronize()
+        err = max(err, max_abs_diff(got, want))
+        if err:
+            fail(f"K13 blake3_chunk_roots != {what}: max |difference| {err}")
+
+    def launch(vals, prefixes, depth, idx=None, cvs=None):
+        before = BT.chunk_roots.launches
+        roots = BT.chunk_roots(vals, prefixes, depth, idx, cvs=cvs)
+        if BT.chunk_roots.launches != before + 1:
+            fail("K13 blake3_chunk_roots: a call must launch once")
+        return roots
+
+    # both depths, a selection (a row twice), aligned rows and rows 8 B off
+    aligned = _field_rand((8, 1 << 13), gen, dev)
+    off = torch.empty((8, (1 << 13) + 1), dtype=torch.int64, device=dev)[:, 1:]
+    off.copy_(aligned)
+    pick = [labels[i] for i in (0, 3, 17, 58, 5)]  # prefix lengths 21, 19, 18, 16, 20
+    idx = [7, 0, 3, 3, 6]
+    for depth in BT.CHUNK_ROOTS_LOG2:
+        want_cvs = torch.empty((5, 8, 1 << 13), dtype=torch.int32, device=dev)
+        want = BT.chunk_roots_model(aligned, pick, depth, idx, cvs=want_cvs)
+        for vals in (aligned, off):
+            cvs = torch.empty_like(want_cvs)
+            compare(launch(vals, pick, depth, idx, cvs=cvs), want, f"its model at depth {depth}")
+            compare(cvs, want_cvs, f"its model's leaf CVs at depth {depth}")
+            compare(launch(vals, pick, depth, idx), want, f"its model, roots only, at depth {depth}")
+        compare(launch(aligned[:1], [b""], depth), BT.chunk_roots_model(aligned[:1], [b""], depth),
+                f"its model with the empty prefix at depth {depth}")
+    del aligned, off
+
+    timed = {}
+    for shape, (rows, n_log2, depth, with_cvs) in (
+        ("t20", (59, 20, 10, True)), ("t24", (59, 24, 10, False)), ("fri27", (1, 27, 11, False)),
+    ):
+        n = 1 << n_log2
+        vals = _field_rand((rows, n), gen, dev)
+        prefixes = labels if rows == 59 else [b""]
+        cvs = torch.empty((rows, 8, n), dtype=torch.int32, device=dev) if with_cvs else None
+        want_cvs = torch.empty_like(cvs) if with_cvs else None
+        got = launch(vals, prefixes, depth, cvs=cvs)
+        want = BT.chunk_roots_plain(vals, prefixes, depth, cvs=want_cvs)
+        compare(got, want, f"plain at {shape}")
+        if with_cvs:
+            compare(cvs, want_cvs, f"plain's leaf CVs at {shape}")
+        # a leaf: its compression and (2^L - 1) / 2^L of a parent's; 8 B read
+        # and, with the CVs, 32 B written
+        leaves = rows * n
+        b_ops = ops_ms(leaves, tuple((2 - 2.0 ** -depth) * o for o in B3_OPS))
+        b_bytes = leaves * (8 + (32 if with_cvs else 0) + 32.0 / (1 << depth)) / _peaks()[0] * 1e3
+        timed[shape] = dict(
+            shape=f"int64 [{rows}, 2^{n_log2}] -> roots [{rows}, 8, 2^{n_log2 - depth}]"
+                  + (f" + CVs [{rows}, 8, 2^{n_log2}]" if with_cvs else ""),
+            ms=time_cuda(lambda: BT.chunk_roots(vals, prefixes, depth, cvs=cvs), 5),
+            eager_ms=time_cuda(lambda: BT.chunk_roots_plain(vals, prefixes, depth, cvs=want_cvs), 1),
+            plain_ms=time_cuda(lambda: BT.chunk_roots_model(vals, prefixes, depth, cvs=want_cvs), 1)
+            if shape == "t20" else None,
+            bound_ms=max(b_bytes, b_ops), bound_by="bytes" if b_bytes >= b_ops else "operations",
+            bytes_ms=b_bytes, operations_ms=b_ops)
+        del vals, cvs, want_cvs, got, want
+        torch.cuda.empty_cache()
+    kern["blake3_chunk_roots"] = dict(
+        name="blake3_chunk_roots", route="cuda", source="sezkp_tpu_torch/ops/csrc/blake3_chunk_roots.cu",
+        replaces="none: the eager message assembly, K1 and level gathers (blake3_jax.columns_commit_* "
+                 "under jit in the JAX package)",
+        max_abs_err=err, **timed["t20"], library_ms=None, at_t24=timed["t24"], at_fri27=timed["fri27"])
+    log(f"[kernels] K13 blake3_chunk_roots == its model at chunk depths {BT.CHUNK_ROOTS_LOG2} (aligned "
+        "and 8 B off, a selection, with and without CVs, the empty prefix) and == plain at the prove's shapes: "
+        + "; ".join(f"{k}: {t['ms']:.3f} ms (bound {t['bound_ms']:.3f}, {t['bound_by']}; eager "
+                    f"{t['eager_ms']:.1f} ms)" for k, t in timed.items())
+        + f"; plain tensor code {timed['t20']['plain_ms']:.1f} ms at t20")
 
 
 def phase_kernels(state) -> None:
@@ -780,6 +879,8 @@ def phase_kernels(state) -> None:
         + "; ".join(f"2^{k}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, {t['bound_by']})"
                     for k, t in timed12.items())
         + f"; plain {timed12[23]['plain_ms']:.1f} ms at 2^23")
+
+    _kernel_chunk_roots(kern, gen, dev)
 
     _kernels_digit_form(kern, gen, dev)
 
@@ -1352,6 +1453,7 @@ def _wrappers():
         "ntt_phase_last": NT.phase_last,
         "ntt_small": NT.small_ntt,
         "deep_divide": NT.deep_divide,
+        "blake3_chunk_roots": BT.chunk_roots,
     }
 
 
@@ -1408,6 +1510,16 @@ def _sha(art) -> str:
     return hashlib.sha256(art.proof_bytes).hexdigest()
 
 
+def _check_k13(launches, timings, lde_log2: int, what: str) -> None:
+    """K13 launches once for the columns' commitment and, with the chunked
+    FRI, once for each of its layers from 2^lde_log2 down to one chunk."""
+    from sezkp_tpu_torch.stark.v1.fri_device import CHUNK_LOG2
+
+    want = 1 + (lde_log2 - CHUNK_LOG2 + 1 if "fri_commit_chunked" in timings else 0)
+    if launches["blake3_chunk_roots"] != want:
+        fail(f"K13 blake3_chunk_roots must launch {want} times {what}, not {launches['blake3_chunk_roots']}")
+
+
 def phase_prove(state) -> None:
     from sezkp_tpu_torch.stark.backends import StarkV1
 
@@ -1426,6 +1538,7 @@ def phase_prove(state) -> None:
             fail(f"kernel {k} was never launched by the prove")
     if launches["deep_divide"] != 1:
         fail(f"K12 deep_divide must launch exactly once a prove, not {launches['deep_divide']} times")
+    _check_k13(launches, timings, t_log2 + 3, "a prove")
 
     t0 = time.time()
     StarkV1.verify(art, blocks, man.root)
@@ -1454,6 +1567,7 @@ def phase_prove(state) -> None:
         fail("device_cols_min above n did not select the host-columns route")
     if launches3["deep_divide"] != 1:
         fail(f"K12 deep_divide must launch exactly once on the host-columns route, not {launches3['deep_divide']}")
+    _check_k13(launches3, timings3, t_log2 + 3, "on the host-columns route")
     if art3.proof_bytes != art.proof_bytes:
         fail("the host-columns route and the device-resident route give different proofs")
 
@@ -1463,6 +1577,7 @@ def phase_prove(state) -> None:
         f"peak device memory {peak4} bytes; launches {json.dumps(launches4)}; sha256 {_sha(art4)}")
     if "fri_commit_chunked" not in timings4:
         fail("fri_chunked_min_log2=23 did not select the chunked FRI at LDE 2^23")
+    _check_k13(launches4, timings4, t_log2 + 3, "with the chunked FRI")
     sha = _sha(art4)
     if not (sha.startswith(STARK_SHA[0]) and sha.endswith(STARK_SHA[1])):
         fail(f"the chunked-FRI prove's sha256 {sha} is not the known {STARK_SHA[0]}...{STARK_SHA[1]}")
@@ -2423,6 +2538,7 @@ def phase_prove_large(state) -> None:
                     fail(f"kernel {k} was never launched by the prove")
             if launches["deep_divide"] != 1:
                 fail(f"K12 deep_divide must launch exactly once a prove, not {launches['deep_divide']} times")
+            _check_k13(launches, timings, lde_log2, f"in the {mode} prove")
             if t_log2 == state["large_t"][-1] and mode == state["large_modes"][0]:
                 state["launches_large"] = launches
             if first is None:

@@ -27,6 +27,7 @@ _BUILD_DIR = os.path.abspath(
 _SOURCES = (
     "blake3_compress.cu", "blake3_chain.cu", "ntt_phases.cu", "ntt_last.cu", "ntt_small.cu",
     "i8_gemm.cu", "gl_digits.cu", "digit_dft.cu", "digit_dft_last.cu", "deep_divide.cu",
+    "blake3_chunk_roots.cu",
 )
 _HEADERS = (
     "blake3_round.cuh", "goldilocks.cuh", "ntt_reg.cuh", "i8_mma.cuh",
@@ -131,12 +132,13 @@ def lib() -> ctypes.CDLL:
     L.sezkp_digit_dft_last.argtypes = [vp, vp, vp, i, i, i, vp]
     L.sezkp_digit_dft_last_smem.argtypes = []
     L.sezkp_deep_divide.argtypes = [vp, vp, vp, ll, ull, vp]
+    L.sezkp_blake3_chunk_roots.argtypes = [vp, ll, ll, i, i, vp, vp, vp, vp]
     for fn in (
         L.sezkp_blake3_compress, L.sezkp_blake3_chain, L.sezkp_ntt_phase_axis,
         L.sezkp_ntt_phase_batched, L.sezkp_ntt_phase_last,
         L.sezkp_ntt_small, L.sezkp_ntt_small_cluster, L.sezkp_launch_floor,
         L.sezkp_i8_gemm, L.sezkp_gl_digits, L.sezkp_digit_dft, L.sezkp_digit_dft_last,
-        L.sezkp_digit_dft_last_smem, L.sezkp_deep_divide,
+        L.sezkp_digit_dft_last_smem, L.sezkp_deep_divide, L.sezkp_blake3_chunk_roots,
     ):
         fn.restype = ctypes.c_int
     _lib = L

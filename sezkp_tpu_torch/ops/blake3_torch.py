@@ -28,6 +28,16 @@ the integer rate is the nearer one, so the kernel keeps all 32 words in register
 does nothing else. The message assembly and the even/odd
 gather for parents stay plain tensor code around the kernel.
 
+**Kernel K13 ``blake3_chunk_roots``** (csrc/blake3_chunk_roots.cu) replaces
+no Pallas kernel: it is the column commitment that the JAX package composes
+under jit (blake3_jax.columns_commit_*), as one launch for a whole matrix --
+each value spliced behind its label prefix in registers, the leaves hashed,
+every chunk tree reduced on chip (one block a tree), the leaf CVs written
+when a buffer is given. :func:`chunk_roots` launches it for a CUDA tensor and
+runs :func:`chunk_roots_plain`, the composition around K1 it replaces, only
+for a CPU tensor; :func:`chunk_roots_model` is its schedule in tensor code.
+The integer rate bounds it, as it does K1.
+
 **Kernel K7 ``blake3_chain``** (csrc/blake3_chain.cu) replaces the Pallas
 kernel ``blake3_pallas._build_chain``. :func:`hash_many_words` launches it for
 a CUDA tensor and runs :func:`hash_many_words_plain` only for a CPU tensor.
@@ -78,7 +88,8 @@ def _rotr(x, n: int):
 def compress_plain(m16: torch.Tensor, block_len: int, flags: int, out_words: int = 8, cv=None):
     """Plain PyTorch version of K1: int32 [16, N] -> int32 [out_words, N].
     Wrapping int32 adds, masked shifts; the 7 rounds unrolled in Python.
-    `cv` is the input chaining value, int32 [8, N]; without it the IV."""
+    `cv` is the input chaining value, int32 [8, N]; without it the IV.
+    `block_len` is an int, or an int32 [N] tensor of one length a message."""
     assert m16.dtype == torch.int32 and m16.dim() == 2 and m16.shape[0] == 16
     n = m16.shape[1]
     msg = [m16[i] for i in range(16)]
@@ -87,7 +98,8 @@ def compress_plain(m16: torch.Tensor, block_len: int, flags: int, out_words: int
         return torch.full((n,), _s32(x), dtype=torch.int32, device=m16.device)
 
     v = ([c(IV[j]) for j in range(8)] if cv is None else [cv[j] for j in range(8)]) + [
-        c(IV[0]), c(IV[1]), c(IV[2]), c(IV[3]), c(0), c(0), c(block_len), c(flags),
+        c(IV[0]), c(IV[1]), c(IV[2]), c(IV[3]), c(0), c(0),
+        block_len if isinstance(block_len, torch.Tensor) else c(block_len), c(flags),
     ]
 
     def g(a, b, cc, d, mx, my):
@@ -315,7 +327,13 @@ def cv_planes_to_bytes(cv) -> np.ndarray:
     return rows.view(np.uint8).reshape(rows.shape[0], 32)
 
 
-# ---------------- batched column commitment (resident leaf CVs) -------------
+# ------------- column commitments: K13 blake3_chunk_roots ------------------
+
+SEG_LOG2 = 21
+# the chunk depths K13 takes: the columns' (params.COL_CHUNK_LOG2) and the FRI's
+CHUNK_ROOTS_LOG2 = (10, 11)
+CHUNK_ROOTS_THREADS = 256  # K13's block, one a (column, chunk) tree
+_TABLE_WORDS = 18  # K13's table: 16 prefix words, the prefix's length, the source row
 
 
 def _chunk_roots(cv: torch.Tensor, chunk_log2: int) -> torch.Tensor:
@@ -325,10 +343,175 @@ def _chunk_roots(cv: torch.Tensor, chunk_log2: int) -> torch.Tensor:
     return cv
 
 
-def _select(values: torch.Tensor, prefixes: Sequence[bytes], idx):
+def _select(values: torch.Tensor, prefixes: Sequence[bytes], idx, chunk_log2: int):
+    """The selected rows (ints) and n; raises on a ragged n or a prefix
+    count that is not the row count."""
     rows = list(range(values.shape[0])) if idx is None else [int(i) for i in idx]
-    assert len(prefixes) == len(rows)
-    return rows
+    if len(prefixes) != len(rows):
+        raise ValueError(f"{len(prefixes)} prefixes for {len(rows)} rows")
+    n = values.shape[1]
+    if n % (1 << chunk_log2):
+        raise ValueError(f"n = {n} is not a multiple of the chunk, 2^{chunk_log2}")
+    return rows, n
+
+
+def _prefix_table(prefixes: Sequence[bytes], rows: Sequence[int]) -> np.ndarray:
+    """K13's per-column table, int32 [C, 18]: the prefix's 16 little-endian
+    words (zero past its end), its length in bytes, the row it commits."""
+    table = np.zeros((len(rows), _TABLE_WORDS), dtype=np.uint32)
+    for i, (prefix, row) in enumerate(zip(prefixes, rows)):
+        if len(prefix) + 8 > 64:
+            raise ValueError("a leaf is one block: prefixes of at most 56 bytes")
+        table[i, :16] = _prefix_words(prefix)
+        table[i, 16] = len(prefix)
+        table[i, 17] = row
+    return table.view(np.int32)
+
+
+def chunk_roots_plain(values: torch.Tensor, prefixes: Sequence[bytes], chunk_log2: int,
+                      idx=None, cvs: Optional[torch.Tensor] = None,
+                      seg_log2: int = SEG_LOG2) -> torch.Tensor:
+    """Plain version of K13: the composition it replaces, on K1 (a CUDA
+    tensor) or compress_plain (a CPU tensor). Column by column: the leaf
+    messages (leaf_messages), one compress, then one parent level (a gather
+    of the even and odd nodes, one compress) for each of the chunk_log2
+    levels. With `cvs` (int32 [C, 8, n]) the column's leaf CVs are written
+    there; without, each column is hashed 2^seg_log2 rows at a time and only
+    the chunk roots are kept. Returns roots int32 [C, 8, n >> chunk_log2]."""
+    rows, n = _select(values, prefixes, idx, chunk_log2)
+    roots = torch.empty((len(rows), 8, n >> chunk_log2), dtype=torch.int32, device=values.device)
+    if cvs is not None:
+        for ci, row in enumerate(rows):
+            cv = hash_leaves_u64_planes(values[row], prefixes[ci], out=cvs[ci])
+            roots[ci] = _chunk_roots(cv, chunk_log2)
+        return roots
+    seg = 1 << min(seg_log2, n.bit_length() - 1)
+    assert n % seg == 0 and seg >= (1 << chunk_log2)
+    for ci, row in enumerate(rows):
+        for s in range(0, n, seg):
+            cv = hash_leaves_u64_planes(values[row, s : s + seg], prefixes[ci])
+            roots[ci, :, s >> chunk_log2 : (s + seg) >> chunk_log2] = _chunk_roots(cv, chunk_log2)
+    return roots
+
+
+def _check_depth(chunk_log2: int) -> None:
+    if chunk_log2 not in CHUNK_ROOTS_LOG2:
+        raise ValueError(f"K13 takes chunk depths {CHUNK_ROOTS_LOG2}, not {chunk_log2}")
+
+
+def chunk_roots_model(values: torch.Tensor, prefixes: Sequence[bytes], chunk_log2: int,
+                      idx=None, cvs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K13's schedule in tensor code (csrc/blake3_chunk_roots.cu), every
+    block at once: the same table (_prefix_table); thread t of the (column,
+    chunk) block takes the leaf pairs p = t + j * T in turn, splices each
+    value into the prefix words as the kernel's funnel shifts do (words
+    word0, word0 + 1, word0 + 2 of the prefix's length), hashes the two leaves
+    and their parent, stores the leaf CVs at 2p, 2p + 1 and the parent at p
+    of the shared level; the levels above are reduced in place, T parents at
+    a time (the reads of a pass, then its writes), from 16 parents down by
+    warp 0 alone. Same arguments and result as chunk_roots."""
+    rows, n = _select(values, prefixes, idx, chunk_log2)
+    _check_depth(chunk_log2)
+    pairs, threads = 1 << (chunk_log2 - 1), CHUNK_ROOTS_THREADS
+    dev = values.device
+    table = torch.from_numpy(_prefix_table(prefixes, rows)).to(dev).to(torch.int64) & _M32
+    cols, nchunks = len(rows), n >> chunk_log2
+    pw, plen = table[:, :16], table[:, 16]
+    word0, sh = (plen >> 2)[:, None, None], ((plen & 3) * 8)[:, None, None]
+    vals = values[table[:, 17]].reshape(cols, nchunks, 2 * pairs)
+    t = torch.arange(threads, device=dev)
+
+    def hash_(m: List[torch.Tensor], block_len) -> torch.Tensor:
+        """16 words [C, nchunks, K] -> CVs [8, C, nchunks, K]."""
+        m16 = torch.stack([w.to(torch.int32) for w in m]).reshape(16, -1)
+        if isinstance(block_len, torch.Tensor):
+            block_len = block_len.expand(m[0].shape).reshape(-1).to(torch.int32)
+        return compress_plain(m16, block_len, LEAF_FLAGS, 8).reshape(8, *m[0].shape)
+
+    def leaf(x: torch.Tensor) -> torch.Tensor:
+        lo, hi = x & _M32, (x >> 32) & _M32
+        pw0 = pw.gather(1, word0[:, :, 0])[:, :, None]
+        spliced = ((pw0 | (lo << sh)) & _M32,               # word0
+                   ((hi << sh) | (lo >> (32 - sh))) & _M32,  # word0 + 1: hi when sh = 0
+                   hi >> (32 - sh))                          # word0 + 2: 0 when sh = 0
+        m = []
+        for w in range(16):
+            word = pw[:, w, None, None].expand(x.shape)
+            for d in (2, 1, 0):
+                word = torch.where(word0 + d == w, spliced[d], word)
+            m.append(word)
+        return hash_(m, plen[:, None, None] + 8)
+
+    level = torch.empty((cols, nchunks, 8, pairs), dtype=torch.int32, device=dev)
+    cv_view = None if cvs is None else cvs.view(cols, 8, nchunks, 2 * pairs)
+    for j in range(pairs // threads):
+        p = t + j * threads
+        left, right = leaf(vals[:, :, 2 * p]), leaf(vals[:, :, 2 * p + 1])
+        parent = hash_(list(left) + list(right), 64)
+        level[:, :, :, p] = parent.permute(1, 2, 0, 3)
+        if cv_view is not None:
+            cv_view[:, :, :, 2 * p] = left.permute(1, 0, 2, 3)
+            cv_view[:, :, :, 2 * p + 1] = right.permute(1, 0, 2, 3)
+
+    roots = torch.empty((cols, 8, nchunks), dtype=torch.int32, device=dev)
+    h = pairs // 2
+    while h >= 1:
+        width = threads if h >= 32 else 32  # the block's threads, or warp 0's lanes
+        for q0 in range(0, h, width):
+            q = q0 + t[:width]
+            q = q[q < h]
+            kids = level[:, :, :, 2 * q], level[:, :, :, 2 * q + 1]  # the reads, then a barrier
+            parent = hash_([kids[0][:, :, w] for w in range(8)] + [kids[1][:, :, w] for w in range(8)], 64)
+            if h == 1:
+                roots[:] = parent[:, :, :, 0].permute(1, 0, 2)
+            else:
+                level[:, :, :, q] = parent.permute(1, 2, 0, 3)
+        h //= 2
+    return roots
+
+
+def chunk_roots(values: torch.Tensor, prefixes: Sequence[bytes], chunk_log2: int, idx=None,
+                cvs: Optional[torch.Tensor] = None, seg_log2: int = SEG_LOG2) -> torch.Tensor:
+    """K13 wrapper: the chunk roots int32 [C, 8, n >> chunk_log2] of the
+    columns idx (default: every row) of values (int64 [C_all, n], n a
+    multiple of 2^chunk_log2), column i's leaves hashed with prefixes[i], and
+    with `cvs` (int32 [C, 8, n], contiguous) their leaf CVs written there.
+
+    CUDA tensor: one launch of K13 (or raises); the per-column table goes
+    up from pinned memory without a sync; chunk_log2 in CHUNK_ROOTS_LOG2,
+    values with unit column stride. It adds the (column, chunk) trees built
+    to the recorded prove's counter `blake3.chunk_trees`. CPU tensor:
+    chunk_roots_plain (`seg_log2` shapes its roots-only scan)."""
+    rows, n = _select(values, prefixes, idx, chunk_log2)
+    if not values.is_cuda:
+        return chunk_roots_plain(values, prefixes, chunk_log2, idx, cvs, seg_log2)
+    _check_depth(chunk_log2)
+    if values.dtype != torch.int64 or values.dim() != 2 or values.stride(1) != 1:
+        raise ValueError("chunk_roots takes int64 [C, n] values with unit column stride")
+    cols, dev = len(rows), values.device
+    if cvs is not None and (
+        cvs.dtype != torch.int32 or tuple(cvs.shape) != (cols, 8, n)
+        or not cvs.is_contiguous() or cvs.device != dev
+    ):
+        raise ValueError(f"cvs must be a contiguous int32 [{cols}, 8, {n}] tensor on the values' device")
+    if cols > 65535:
+        raise ValueError("K13 takes at most 65535 columns a launch")
+    roots = torch.empty((cols, 8, n >> chunk_log2), dtype=torch.int32, device=dev)
+    if cols == 0:
+        return roots
+    table = torch.from_numpy(_prefix_table(prefixes, rows)).pin_memory().to(dev, non_blocking=True)
+    with torch.cuda.device(dev):
+        rc = _kernels.lib().sezkp_blake3_chunk_roots(
+            values.data_ptr(), values.stride(0), n, chunk_log2, cols, table.data_ptr(),
+            roots.data_ptr(), None if cvs is None else cvs.data_ptr(), _kernels.stream_ptr(),
+        )
+    _kernels.check(rc, "blake3_chunk_roots")
+    chunk_roots.launches += 1
+    tracing.count("blake3.chunk_trees", cols * (n >> chunk_log2))
+    return roots
+
+
+chunk_roots.launches = 0
 
 
 def columns_commit_from_planes(values: torch.Tensor, prefixes: Sequence[bytes],
@@ -341,17 +524,11 @@ def columns_commit_from_planes(values: torch.Tensor, prefixes: Sequence[bytes],
     prefixes: one byte string per selected row (any lengths).
     Returns (cvs int32 [C, 8, n] leaf CV planes, resident on the device;
     roots int32 [C, 8, n_chunks] chunk-root planes, also on the device).
-    Messages are assembled one column at a time, so the [C, 16, n] message
-    tensor is never whole."""
-    rows = _select(values, prefixes, idx)
-    n = values.shape[1]
-    assert n % (1 << chunk_log2) == 0
+    On the card one K13 launch (chunk_roots); on the CPU the plain
+    composition, one column at a time."""
+    rows, n = _select(values, prefixes, idx, chunk_log2)
     cvs = torch.empty((len(rows), 8, n), dtype=torch.int32, device=values.device)
-    roots = torch.empty((len(rows), 8, n >> chunk_log2), dtype=torch.int32, device=values.device)
-    for ci, row in enumerate(rows):
-        cv = hash_leaves_u64_planes(values[row], prefixes[ci], out=cvs[ci])
-        roots[ci] = _chunk_roots(cv, chunk_log2)
-    return cvs, roots
+    return cvs, chunk_roots(values, prefixes, chunk_log2, idx, cvs=cvs)
 
 
 def columns_commit_device(values: torch.Tensor, prefixes: Sequence[bytes], chunk_log2: int):
@@ -360,31 +537,23 @@ def columns_commit_device(values: torch.Tensor, prefixes: Sequence[bytes], chunk
 
 
 def columns_commit_roots_scan(values: torch.Tensor, prefixes: Sequence[bytes],
-                              chunk_log2: int, idx=None, seg_log2: int = 21,
+                              chunk_log2: int, idx=None, seg_log2: int = SEG_LOG2,
                               counter: Optional[str] = None):
     """Memory-bounded chunk roots: the same roots as columns_commit_from_planes
-    but no leaf-CV buffer; each column is hashed 2^seg_log2 rows at a time and
-    only the chunk roots are kept. Openings then recompute the queried chunks
+    but no leaf-CV buffer. Openings then recompute the queried chunks
     (chunk_paths_from_planes / chunk_paths_from_ranges).
-    A segment costs 1 + chunk_log2 launches of K1 and their host-side calls
-    whatever its size, so segments are large (2^21 rows: 192 MB of messages
-    and CVs); the JAX package's 2^16 is one compiled scan there.
-    It runs C * n / 2^min(seg_log2, log2 n) segments (C the selected rows),
-    which it adds to the recorded prove's counter `counter` when one is
-    named (utils/tracing.count): 59 * 8 = 472 for the columns of T = 2^24.
+    On the card one K13 launch, which keeps no leaf CV or message off chip;
+    it adds 1 to the recorded prove's counter `counter` when one is named
+    (utils/tracing.count). On the CPU the plain composition hashes each
+    column 2^seg_log2 rows at a time (1 + chunk_log2 compress calls a
+    segment) and adds its C * n / 2^min(seg_log2, log2 n) segments to the
+    counter (C the selected rows): 59 * 8 = 472 for the columns of T = 2^24.
     Returns roots int32 [C, 8, n_chunks] on the device."""
-    rows = _select(values, prefixes, idx)
-    n = values.shape[1]
-    seg = 1 << min(seg_log2, n.bit_length() - 1)
-    assert n % seg == 0 and seg >= (1 << chunk_log2)
+    rows, n = _select(values, prefixes, idx, chunk_log2)
     if counter is not None:
-        tracing.count(counter, len(rows) * (n // seg))
-    roots = torch.empty((len(rows), 8, n >> chunk_log2), dtype=torch.int32, device=values.device)
-    for ci, row in enumerate(rows):
-        for s in range(0, n, seg):
-            cv = hash_leaves_u64_planes(values[row, s : s + seg], prefixes[ci])
-            roots[ci, :, s >> chunk_log2 : (s + seg) >> chunk_log2] = _chunk_roots(cv, chunk_log2)
-    return roots
+        segments = len(rows) * (n >> min(seg_log2, n.bit_length() - 1))
+        tracing.count(counter, 1 if values.is_cuda else segments)
+    return chunk_roots(values, prefixes, chunk_log2, idx, seg_log2=seg_log2)
 
 
 def croots_to_host(roots: torch.Tensor) -> np.ndarray:

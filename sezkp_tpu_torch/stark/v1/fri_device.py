@@ -7,9 +7,10 @@ Counterpart of sezkp_tpu/stark/v1/fri_device.py, with both of its modes:
   there;
 - **chunked, "tops-only"** (from `chunked_min_log2` up, default
   FRI_CHUNKED_MIN_LOG2): a layer's tree keeps only its levels of
-  2^CHUNK_LOG2 leaves a node and above (a few MB at 2^27), built
-  2^seg_log2 leaves at a time so that no message or CV buffer grows with
-  the layer; the layer values stay resident, and the openings gather each
+  2^CHUNK_LOG2 leaves a node and above (a few MB at 2^27); on the card the
+  chunk roots come from one launch of kernel K13 a layer, which keeps no
+  message or leaf CV off chip (on the CPU 2^seg_log2 leaves at a time);
+  the layer values stay resident, and the openings gather each
   queried 2^CHUNK_LOG2-leaf chunk from them and hash it anew (the
   reference's recompute-on-open schedule, fri_stream.rs:170-312), every
   distinct chunk once and the chunks of all layers in one batch.
@@ -23,7 +24,8 @@ Two phases are forced by the Fiat-Shamir schedule: betas depend on the
 layer-0 root (fri.rs:51-68), so ``commit_layer0`` commits layer 0 and
 ``commit_rest`` takes the derived betas and produces everything else.
 
-Leaf hashing and parent levels go through kernel K1 (ops/blake3_torch); the
+Leaf hashing and parent levels go through kernel K1 (ops/blake3_torch), the
+chunked mode's chunk trees through K13; the
 fold ``y[:half] + beta * y[half:]`` is plain field arithmetic on tensors, as
 it is outside any kernel in the JAX package (folded 2^seg_log2 values at a
 time, which bounds its temporaries).
@@ -76,9 +78,10 @@ def _tree_levels(vals: torch.Tensor) -> List[torch.Tensor]:
 def _chunk_tops(vals: torch.Tensor, seg_log2: int) -> torch.Tensor:
     """Field values [m] -> the tree's levels from the 2^CHUNK_LOG2-leaf chunk
     roots up, side by side ([8, 2K - 1], K = m >> CHUNK_LOG2, the root last).
-    The chunk roots are hashed 2^seg_log2 leaves at a time, so the leaf
-    messages and CVs of one segment at most are alive; the segments count
-    to the recorded prove's `fri.chunk_tops_segments`."""
+    The chunk roots are one K13 launch on the card, which counts 1 to the
+    recorded prove's `fri.chunk_tops_segments`; on the CPU they are hashed
+    2^seg_log2 leaves at a time (one segment's leaf messages and CVs alive
+    at most), and the segments count there."""
     roots = BT.columns_commit_roots_scan(vals[None], [b""], CHUNK_LOG2, seg_log2=seg_log2,
                                          counter="fri.chunk_tops_segments")[0]
     return torch.cat(_levels_up(roots), dim=1)
