@@ -1,5 +1,5 @@
-"""State carried across from the JAX package: blocks, field planes and the
-device-resident column state.
+"""State carried across from the JAX package: blocks, field planes and
+digest words.
 
 There are no weights in this system; what both packages must agree on is the
 input blocks and the numeric state. These helpers take the JAX package's
@@ -17,7 +17,6 @@ import torch
 
 from .core.types import BlockSummary, MovementLog
 from .ops import goldilocks_torch as FT
-from .stark.v1.columns_device import DeviceColumns
 
 
 def blocks_from_reference(blocks: Sequence) -> List[BlockSummary]:
@@ -55,23 +54,6 @@ def blocks_from_reference(blocks: Sequence) -> List[BlockSummary]:
 def field_from_planes(lo, hi, device="cpu") -> torch.Tensor:
     """(lo, hi) uint32 planes of the JAX package -> int64 field tensor."""
     return FT.planes_to_field(np.asarray(lo), np.asarray(hi), device)
-
-
-def device_columns_from_reference(ref_dc, device="cpu") -> DeviceColumns:
-    """DeviceColumns-like object of the JAX package (its raw-input tuple
-    `_args`, `_anchor`, `_carry`, `_packed`, `n`, `tau`) -> this package's
-    DeviceColumns over the same raw inputs. Its derived (lo, hi) planes go
-    through :func:`field_from_planes`, which takes [C, n] planes as well."""
-    (input_mv, tape, wflag, wsym, block_of, _block_start, is_first, is_last,
-     win_len, in_off, out_off) = (np.asarray(a) for a in ref_dc._args)
-    packed = bool(ref_dc._packed)
-    # packed: the three log slots share one u8 plane
-    logs = (tape,) if packed else (tape, wflag, wsym.astype(np.int32))
-    return DeviceColumns.from_raw(
-        ref_dc.n, ref_dc.tau, packed, input_mv, logs, block_of, is_first, is_last,
-        win_len.astype(np.int64), in_off.astype(np.int64), out_off.astype(np.int64),
-        np.asarray(ref_dc._anchor), np.asarray(ref_dc._carry), device,
-    )
 
 
 def planes_from_field(x: torch.Tensor):

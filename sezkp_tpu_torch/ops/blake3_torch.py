@@ -531,17 +531,12 @@ def columns_commit_from_planes(values: torch.Tensor, prefixes: Sequence[bytes],
     return cvs, chunk_roots(values, prefixes, chunk_log2, idx, cvs=cvs)
 
 
-def columns_commit_device(values: torch.Tensor, prefixes: Sequence[bytes], chunk_log2: int):
-    """columns_commit_from_planes over every row of `values` (int64 [C, n])."""
-    return columns_commit_from_planes(values, prefixes, chunk_log2)
-
-
 def columns_commit_roots_scan(values: torch.Tensor, prefixes: Sequence[bytes],
                               chunk_log2: int, idx=None, seg_log2: int = SEG_LOG2,
                               counter: Optional[str] = None):
     """Memory-bounded chunk roots: the same roots as columns_commit_from_planes
     but no leaf-CV buffer. Openings then recompute the queried chunks
-    (chunk_paths_from_planes / chunk_paths_from_ranges).
+    (chunk_tree_planes).
     On the card one K13 launch, which keeps no leaf CV or message off chip;
     it adds 1 to the recorded prove's counter `counter` when one is named
     (utils/tracing.count). On the CPU the plain composition hashes each
@@ -604,9 +599,13 @@ def path_planes_to_bytes(planes: Optional[torch.Tensor], k: int, chunk_log2: int
 
 def chunk_path_planes(cvs: torch.Tensor, cols: torch.Tensor, chunk_starts: torch.Tensor,
                       idx_in_chunk: torch.Tensor, chunk_log2: int):
-    """chunk_paths_device on the device, from int64 [K] index tensors there:
-    (the sibling nodes int32 [chunk_log2, 8, K] or None, the chunk roots'
-    CV planes [8, K]). Launches only: nothing comes to the host."""
+    """Inner-chunk Merkle paths for K (column, chunk, index) requests against
+    resident leaf CVs: cvs int32 [C, 8, n]; cols, chunk_starts, idx_in_chunk
+    int64 [K] tensors on cvs' device (column, row offset of the chunk, index
+    inside it). Each request's chunk tree is rebuilt level by level and the
+    sibling node gathered on the way. Returns (the sibling nodes int32
+    [chunk_log2, 8, K] or None, the chunk roots' CV planes [8, K]).
+    Launches only: nothing comes to the host."""
     n = cvs.shape[2]
     # gather the K chunks' leaves: [8, K * chunk]
     offs = (cols * (8 * n) + chunk_starts)[:, None] \
@@ -614,23 +613,6 @@ def chunk_path_planes(cvs: torch.Tensor, cols: torch.Tensor, chunk_starts: torch
     flat = cvs.reshape(-1)
     cur = torch.stack([flat[(offs + w * n).reshape(-1)] for w in range(8)], dim=0)
     return _path_planes_from_leaf_cvs(cur, idx_in_chunk, chunk_log2)
-
-
-def chunk_paths_device(cvs: torch.Tensor, cols, chunk_starts, idx_in_chunk, chunk_log2: int):
-    """Inner-chunk Merkle paths for K (column, chunk, index) requests.
-
-    cvs: int32 [C, 8, n] resident leaf CVs. cols / chunk_starts / idx_in_chunk:
-    int sequences [K] (column, row offset of the chunk, index inside it).
-    Each request's chunk tree is rebuilt level by level on the device and the
-    sibling node gathered on the way; only the paths travel back.
-    Returns (paths uint8 [K, chunk_log2, 32], roots uint8 [K, 32])."""
-    k = len(chunk_starts)
-    if k == 0:
-        return np.zeros((0, chunk_log2, 32), np.uint8), np.zeros((0, 32), np.uint8)
-    dev = cvs.device
-    planes, roots = chunk_path_planes(cvs, _as_index(cols, dev), _as_index(chunk_starts, dev),
-                                      _as_index(idx_in_chunk, dev), chunk_log2)
-    return path_planes_to_bytes(planes, k, chunk_log2), cv_planes_to_bytes(roots)
 
 
 def prefix_groups(prefixes: Sequence[bytes]):
@@ -667,53 +649,3 @@ def chunk_tree_planes(vals: torch.Tensor, order: torch.Tensor, bounds, trees: to
     planes, roots = _path_planes_from_leaf_cvs(cur.reshape(8, k * chunk), idx_in_chunk, chunk_log2,
                                                rows=trees)
     return planes, roots, vals[trees, idx_in_chunk]
-
-
-def _chunk_paths_from_values(vals: torch.Tensor, idx_in_chunk, prefixes: Sequence[bytes],
-                             chunk_log2: int):
-    """vals: int64 [K, chunk], request i's chunk of column values, hashed
-    with prefixes[i]. Returns (paths, roots, values uint64 [K])."""
-    k, chunk = vals.shape
-    assert len(prefixes) == k
-    dev = vals.device
-    order, bounds = prefix_groups(prefixes)
-    up = _as_index(np.concatenate([order, np.asarray(idx_in_chunk, dtype=np.int64)]), dev)
-    planes, roots, opened = chunk_tree_planes(vals, up[:k], bounds, torch.arange(k, device=dev),
-                                              up[k:], chunk_log2)
-    return (path_planes_to_bytes(planes, k, chunk_log2), cv_planes_to_bytes(roots),
-            opened.cpu().numpy().view(np.uint64))
-
-
-def chunk_paths_from_planes(values: torch.Tensor, col_indices, chunk_starts, idx_in_chunk,
-                            prefixes: Sequence[bytes], chunk_log2: int):
-    """Openings against scan-committed columns: recompute each queried
-    chunk's tree on the device from the resident column matrix (reference
-    semantics: recompute-on-open, openings.rs:278-498 -- same paths, batched).
-
-    values: int64 [C, n]; request i reads rows chunk_starts[i] .. + chunk of
-    column col_indices[i] and is hashed with prefixes[i] (any lengths).
-    Returns (paths uint8 [K, chunk_log2, 32], roots uint8 [K, 32], the opened
-    values uint64 [K])."""
-    k = len(chunk_starts)
-    if k == 0:
-        return (np.zeros((0, chunk_log2, 32), np.uint8), np.zeros((0, 32), np.uint8),
-                np.zeros(0, np.uint64))
-    dev = values.device
-    n = values.shape[1]
-    offs = (_as_index(col_indices, dev) * n + _as_index(chunk_starts, dev))[:, None] \
-        + torch.arange(1 << chunk_log2, device=dev)[None, :]
-    return _chunk_paths_from_values(values.reshape(-1)[offs], idx_in_chunk, prefixes, chunk_log2)
-
-
-def chunk_paths_from_ranges(ranges: torch.Tensor, sel_s, col_indices, idx_in_chunk,
-                            prefixes: Sequence[bytes], chunk_log2: int):
-    """Like chunk_paths_from_planes but sourcing each request's chunk from
-    pre-derived [S, C, chunk] range columns (DeviceColumns.derive_ranges):
-    request i reads ranges[sel_s[i], col_indices[i]]. No resident [C, n]
-    matrix is needed. Same return contract."""
-    if len(sel_s) == 0:
-        return (np.zeros((0, chunk_log2, 32), np.uint8), np.zeros((0, 32), np.uint8),
-                np.zeros(0, np.uint64))
-    dev = ranges.device
-    vals = ranges[_as_index(sel_s, dev), _as_index(col_indices, dev)]
-    return _chunk_paths_from_values(vals, idx_in_chunk, prefixes, chunk_log2)

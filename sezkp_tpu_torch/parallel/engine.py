@@ -3,13 +3,13 @@ computed across the ranks.
 
 Counterpart of the column-commitment half of sezkp_tpu/parallel/engine.py
 (``ShardedColumnEngine``, ``prove_v1_sharded(..., commitments_only=True)``).
-The 9*tau+3 trace columns are committed across the ranks with kernel K1,
-in one of two ways:
+The 9*tau+3 trace columns are committed across the ranks (on the card by
+kernel K13, ``blake3_torch.columns_commit_roots_scan``), in one of two ways:
 
 - row-wise (when n % D == 0 and whole chunks fall to each rank): every rank
-  derives its own [C, n/D] column slab from the raw movement logs
-  (prove_sharded.raw_shard_args, columns_device.derive_cols_core) and hashes
-  its chunks of every column;
+  derives its own [C, n/D] column slab from the raw movement logs of its
+  rows (prove_sharded.rank_columns, a ``columns_device.DeviceColumns`` with
+  ``rows``) and hashes its chunks of every column;
 - column groups (otherwise): the columns, padded to a multiple of D with
   copies of column 0, are dealt out in contiguous groups and every rank
   hashes and chunk-commits its group.
@@ -40,7 +40,7 @@ from ..stark.v1.merkle import MerkleTree, hash_field_leaves_labeled
 from ..stark.v1.openings import _label_prefix
 from ..stark.v1.proof import ColumnRoot, Opening
 from .mesh import Mesh, all_gather_tiled, make_global
-from .prove_sharded import TOPS_MIN_LOG2, check_world, raw_shard_args
+from .prove_sharded import TOPS_MIN_LOG2, check_world, rank_columns
 
 
 class ShardedColumnEngine:
@@ -64,11 +64,11 @@ class ShardedColumnEngine:
         self._raw_args = None
 
     def raw_args(self):
-        """This rank's raw inputs of the column derivation, uploaded once a
-        prove: the row-wise commitments and the sharded pipeline's phase 1
-        read the same RawShard."""
-        if self._raw_args is None:
-            self._raw_args = raw_shard_args(self.mesh, self.mesh.size, self.blocks)
+        """This rank's DeviceColumns over its rows, built once a prove (None
+        without blocks): the row-wise commitments and the sharded pipeline's
+        phase 1 derive their slabs from the same raw inputs."""
+        if self._raw_args is None and self.blocks is not None:
+            self._raw_args = rank_columns(self.mesh, self.blocks)
         return self._raw_args
 
     def build_roots(self) -> List[ColumnRoot]:
@@ -111,11 +111,11 @@ class ShardedColumnEngine:
         """Row-sharded commit: derive + hash every column's local rows on the
         device from the raw logs; no host [C, n] matrix."""
         self.rowwise = True
-        cols = self.raw_args().derive()  # [C, n/D]
+        dc = self.raw_args()
         roots = BT.columns_commit_roots_scan(
-            cols, [_label_prefix(lb) for lb in self.labels], self.chunk_log2
+            dc.planes, [_label_prefix(lb) for lb in self.labels], self.chunk_log2
         )  # [C, 8, n/D >> chunk_log2]
-        del cols
+        dc.release_planes()  # phase 1 derives the slab anew
         self._keep(BT.croots_to_host(all_gather_tiled(roots, self.mesh, 2)))
 
     def open_batch(self, requests) -> List[Opening]:
@@ -157,7 +157,7 @@ class ShardedProverEngine(ShardedColumnEngine):
 
         return ShardedPipeline(
             self.mesh, self.tc, blocks=self.blocks,
-            raw_args=self.raw_args,
+            raw_args=self.raw_args(),
             tops_min_log2=self.tops_min_log2,
         ).deep_lde_fri(alphas, mask_coeffs, blow_log2, shift, z)
 

@@ -48,39 +48,6 @@ COMPOSE_SEG_LOG2 = 19
 _M32 = 0xFFFFFFFF
 
 
-def _concat_blocks(arrs, total_rows: int) -> np.ndarray:
-    """Concatenate per-block row arrays, zero-copy when they are adjacent
-    views into one shared base (partition_trace emits such views)."""
-    a0 = arrs[0]
-    base = a0.base
-    if base is not None and isinstance(base, np.ndarray) \
-            and base.flags["C_CONTIGUOUS"]:
-        row_bytes = a0.dtype.itemsize * (
-            int(np.prod(a0.shape[1:])) if a0.ndim > 1 else 1
-        )
-        ptr0 = a0.__array_interface__["data"][0]
-        expect = ptr0
-        ok = row_bytes > 0
-        for a in arrs:
-            if (
-                a.base is not base
-                or a.dtype != a0.dtype
-                or a.shape[1:] != a0.shape[1:]
-                or not a.flags["C_CONTIGUOUS"]
-                or a.__array_interface__["data"][0] != expect
-            ):
-                ok = False
-                break
-            expect += a.nbytes
-        if ok:
-            off = ptr0 - base.__array_interface__["data"][0]
-            if off % row_bytes == 0 and base.shape[1:] == a0.shape[1:]:
-                start = off // row_bytes
-                if start + total_rows <= base.shape[0]:
-                    return base[start : start + total_rows]
-    return np.concatenate(arrs)
-
-
 def _block_consts(blocks):
     """Per-block lengths (int64 [nb]), first rows (int32 [nb]) and window
     lengths and head offsets (u64 [nb, tau] each)."""
@@ -92,42 +59,6 @@ def _block_consts(blocks):
     in_off = np.stack([b.head_in_offsets for b in blocks]).astype(np.uint64)
     out_off = np.stack([b.head_out_offsets for b in blocks]).astype(np.uint64)
     return lens, block_start, win_len, in_off, out_off
-
-
-def _host_inputs(blocks) -> dict:
-    """Pack movement logs + block structure into small host arrays."""
-    n = sum(b.n_steps for b in blocks)
-    tau = blocks[0].tau if blocks else 0
-    nb = len(blocks)
-    input_mv = _concat_blocks([b.movement_log.input_mv for b in blocks], n)
-    tape_mv = _concat_blocks(
-        [b.movement_log.tape_mv for b in blocks], n
-    )  # [n, tau]
-    wflag = _concat_blocks([b.movement_log.write_flag for b in blocks], n)
-    wsym = _concat_blocks([b.movement_log.write_sym for b in blocks], n)
-
-    lens, block_start, win_len, in_off, out_off = _block_consts(blocks)
-    block_of = np.repeat(np.arange(nb, dtype=np.int32), lens)
-    is_first = np.zeros(n, dtype=np.uint8)
-    is_last = np.zeros(n, dtype=np.uint8)
-    nz = lens > 0
-    is_first[block_start[nz]] = 1
-    is_last[(block_start[nz] + lens[nz] - 1).astype(np.int64)] = 1
-    return dict(
-        n=n,
-        tau=tau,
-        input_mv=input_mv,
-        tape_mv=tape_mv,
-        wflag=wflag,
-        wsym=wsym,
-        block_of=block_of,
-        block_start=block_start,
-        is_first=is_first,
-        is_last=is_last,
-        win_len=win_len,
-        in_off=in_off,
-        out_off=out_off,
-    )
 
 
 # numpy row types and the torch type each is staged as: a uint16 comes as the
@@ -182,41 +113,12 @@ def _unpack_logs(pk: torch.Tensor):
     """Packed u8 movement-log plane -> (tape_mv i8, wflag u8, wsym i32).
 
     Layout: bits 0-1 = tape_mv + 1, bit 2 = write_flag, bits 3-6 =
-    write_sym. Packing at the host->device boundary quarters the raw-log
-    upload (2+2*tau B/row -> 2+tau B/row at tau=8); the unpack runs on the
-    device and feeds the unchanged derivations."""
+    write_sym. The packed plane is what stays resident, one byte a tape a
+    row; the unpack runs on the device and feeds the unchanged derivations."""
     tmv = ((pk & 3).to(torch.int32) - 1).to(torch.int8)
     wfl = (pk >> 2) & 1
     wsy = ((pk >> 3) & 15).to(torch.int32)
     return tmv, wfl, wsy
-
-
-def pack_logs(tape_mv_t: np.ndarray, wflag_t: np.ndarray,
-              wsym_t: np.ndarray) -> np.ndarray:
-    """[tau, n] host arrays -> packed u8 [tau, n] (see _unpack_logs).
-
-    The callers pass transposed views of contiguous [n, tau] arrays; the
-    arithmetic runs on the contiguous bases (sequential passes, in-place
-    accumulation) and only the final transpose is strided."""
-
-    def rows(mv: np.ndarray, wf: np.ndarray, ws: np.ndarray) -> np.ndarray:
-        pk = (mv + np.int8(1)).view(np.uint8)  # {-1,0,1} -> {0,1,2}
-        pk |= wf.astype(np.uint8) << 2
-        pk |= ws.astype(np.uint8) << 3
-        return pk
-
-    if (
-        not tape_mv_t.flags["C_CONTIGUOUS"]
-        and tape_mv_t.T.flags["C_CONTIGUOUS"]
-        and wflag_t.T.flags["C_CONTIGUOUS"]
-        and wsym_t.T.flags["C_CONTIGUOUS"]
-    ):
-        return rows(tape_mv_t.T, wflag_t.T, wsym_t.T).T
-    return rows(
-        np.ascontiguousarray(tape_mv_t),
-        np.ascontiguousarray(wflag_t),
-        np.ascontiguousarray(wsym_t),
-    )
 
 
 def derive_cols_core(imv, tmv, wfl, wsy, bo, isf, isl,
@@ -264,28 +166,29 @@ def _block_table(a: np.ndarray) -> np.ndarray:
 
 def _pack_rows(tmv: torch.Tensor, wfl: torch.Tensor, wsym: torch.Tensor) -> torch.Tensor:
     """[n, tau] tape moves, write flags and write symbols on the device ->
-    packed u8 [tau, n], as pack_logs packs them on the host."""
+    packed u8 [tau, n] (the layout _unpack_logs reads)."""
     pk = (tmv + 1).to(torch.uint8) | (wfl.to(torch.uint8) << 2) | (wsym.to(torch.uint8) << 3)
     return pk.T.contiguous()
 
 
-def _cumsum_anchors(tape_mv: torch.Tensor, n: int, tau: int, bs: np.ndarray):
-    """Global tape-mv csum (exclusive) at each block start and at each
-    2^CARRY_GRAN_LOG2 granule start, from the [n, tau] tape moves on their
-    device: (anchor i32 [tau, nb], carry i32 [tau, n >> CARRY_GRAN_LOG2]).
+def _cumsum_anchors(tape_mv: torch.Tensor, bs, at):
+    """Global tape-mv csum (exclusive) at each block start `bs` and at each
+    row of `at` (any rows: the 2^CARRY_GRAN_LOG2 granule starts, or a
+    shard's first row), from the [n, tau] tape moves on their device:
+    (anchor i32 [tau, len(bs)], carry i32 [tau, len(at)]).
 
     Only anchor rows are needed, so when every anchor position is a multiple
     of a common power-of-two segment size, sum per segment and cumsum the
     [n/g0, tau] segment totals instead of the full [n, tau] slab."""
-    gran = 1 << CARRY_GRAN_LOG2
+    n, tau = tape_mv.shape
     bs = np.asarray(bs, dtype=np.int64)
-    pos = np.concatenate([bs, np.arange(0, n, gran, dtype=np.int64)])
-    g0 = gran
+    pos = np.concatenate([bs, np.asarray(at, dtype=np.int64)])
+    g0 = 1 << CARRY_GRAN_LOG2
     sizes = np.diff(np.append(bs, n))
     if sizes.size and (sizes == sizes[0]).all() and sizes[0] > 0 \
             and (int(sizes[0]) & (int(sizes[0]) - 1)) == 0:
         g0 = min(g0, int(sizes[0]))
-    if n % g0 == 0 and (bs % g0 == 0).all() and gran % g0 == 0:
+    if n % g0 == 0 and (pos % g0 == 0).all():
         step = g0
         csum = tape_mv.reshape(n // g0, g0, tau).sum(1, dtype=torch.int32)
         csum = csum.cumsum(0, dtype=torch.int32)  # [n/g0, tau]
@@ -296,7 +199,10 @@ def _cumsum_anchors(tape_mv: torch.Tensor, n: int, tau: int, bs: np.ndarray):
     j = torch.from_numpy(np.maximum(pos // step - 1, 0)).to(dev)
     first = torch.from_numpy(pos == 0).to(dev)
     excl = torch.where(first[:, None], 0, csum[j]).to(torch.int32).T
-    return excl[:, : bs.size].contiguous(), excl[:, bs.size :].contiguous()
+    # copies even of a slice that is already contiguous (a shard's one carry
+    # row): a view would keep the whole [tau, len(bs) + len(at)] buffer alive
+    return (excl[:, : bs.size].clone(memory_format=torch.contiguous_format),
+            excl[:, bs.size :].clone(memory_format=torch.contiguous_format))
 
 
 class DeviceColumns:
@@ -313,74 +219,67 @@ class DeviceColumns:
     CUDA device); the packing, its bounds check, the cumsum anchors and the
     per-row block index and flags are made on the device.
 
+    `rows` = (lo, hi) keeps the raw inputs of those rows only: a rank's
+    share of the sharded prover. The packing is decided and the anchors are
+    summed over the whole trace, so every rank decides and anchors alike;
+    `.planes` is then the [C, hi - lo] slab, equal to `.planes[:, lo:hi]` of
+    the whole trace, `.n` stays the trace's length, and `derive_ranges`
+    raises.
+
     `device=None` means the CUDA card; the CPU only when asked."""
 
-    def __init__(self, blocks: Sequence, device=None):
+    def __init__(self, blocks: Sequence, device=None, rows=None):
         device = torch.device("cuda" if device is None else device)
         with span("device_columns.host_inputs"):
             n = sum(b.n_steps for b in blocks)
             tau = blocks[0].tau if blocks else 0
+            if rows is not None:
+                lo, hi = rows
+                if not 0 <= lo < hi <= n:
+                    raise ValueError(f"rows {rows} are not a range of the trace's {n} rows")
             logs = [b.movement_log for b in blocks]
             pin = device.type == "cuda"
-            rows = [_staged_rows([getattr(m, f) for m in logs], n, pin)
-                    for f in ("input_mv", "tape_mv", "write_flag", "write_sym")]
+            staged = [_staged_rows([getattr(m, f) for m in logs], n, pin)
+                      for f in ("input_mv", "tape_mv", "write_flag", "write_sym")]
             sym_u16 = np.dtype(logs[0].write_sym.dtype) == np.uint16
             lens, block_start, win_len, in_off, out_off = _block_consts(blocks)
             tables = (_block_table(win_len), _block_table(in_off), _block_table(out_off))
         with span("device_columns.upload", WAIT):
-            imv, tmv, wfl, wsy = (r.to(device, non_blocking=True) for r in rows)
+            if rows is not None:
+                # a shard's own rows of the input moves and write flags; the
+                # tape moves and symbols go up whole for the anchors and the
+                # packing's bounds, and are cut below
+                staged[0], staged[2] = staged[0][lo:hi], staged[2][lo:hi]
+            imv, tmv, wfl, wsy = (r.to(device, non_blocking=True) for r in staged)
             # pack (tape_mv, write_flag, write_sym) into one u8 plane when the
             # symbol fits 4 bits (always for the reference generator; larger
             # alphabets keep the unpacked logs): one sync reads the bounds
             packed = n > 0 and bool(torch.stack([
                 tmv.min() >= -1, tmv.max() <= 1, wsy.min() >= 0, wsy.max() <= 15]).all())
+            own_mv, own_sym = (tmv, wsy) if rows is None else (tmv[lo:hi], wsy[lo:hi])
             if packed:
-                logs = (_pack_rows(tmv, wfl, wsy),)
+                logs = (_pack_rows(own_mv, wfl, own_sym),)
             else:
-                sym = wsy.to(torch.int32)
-                logs = (tmv.T.contiguous(), wfl.to(torch.uint8).T.contiguous(),
+                sym = own_sym.to(torch.int32)
+                logs = (own_mv.T.contiguous(), wfl.to(torch.uint8).T.contiguous(),
                         (sym & 0xFFFF if sym_u16 else sym).T.contiguous())
-            anchor, carry = _cumsum_anchors(tmv, n, tau, block_start)
-            block_of, is_first, is_last = _block_rows(lens, block_start, n, device)
-            self._init_raw(n, tau, packed, imv, logs, block_of, is_first, is_last,
-                           *tables, anchor, carry, device)
-
-    @classmethod
-    def from_raw(cls, n, tau, packed, input_mv, logs, block_of, is_first, is_last,
-                 win_len, in_off, out_off, anchor, carry, device=None) -> "DeviceColumns":
-        """Build from raw host arrays as `__init__` derives them from blocks:
-        `logs` is (packed u8 [tau, n],) or (tape_mv i8, wflag u8, wsym i32),
-        each [tau, n]; the block tables are int64 [tau, nb]; anchor and carry
-        are int32 [tau, nb] and [tau, n >> CARRY_GRAN_LOG2]."""
-        self = cls.__new__(cls)
-        self._init_raw(n, tau, packed, input_mv, logs, block_of, is_first, is_last,
-                       win_len, in_off, out_off, anchor, carry, device)
-        return self
-
-    def _init_raw(self, n, tau, packed, input_mv, logs, block_of, is_first, is_last,
-                  win_len, in_off, out_off, anchor, carry, device) -> None:
-        self.n = int(n)
-        self.tau = int(tau)
-        self.labels = all_labels(self.tau)
-        self.device = torch.device("cuda" if device is None else device)
-        self._packed = bool(packed)
-
-        def up(a):
-            if isinstance(a, torch.Tensor):
-                return a.to(self.device)
-            a = np.ascontiguousarray(a)
-            if not a.flags.writeable:  # torch refuses to alias read-only memory
-                a = a.copy()
-            return torch.from_numpy(a).to(self.device)
-
-        self._input_mv = up(input_mv)
-        self._logs = tuple(up(a) for a in logs)
-        self._block_of = up(block_of)
-        self._is_first = up(is_first)
-        self._is_last = up(is_last)
-        self._tables = (up(win_len), up(in_off), up(out_off), up(anchor))
-        self._carry = up(carry)
-        self._planes: Optional[torch.Tensor] = None
+            carry_at = np.arange(0, n, 1 << CARRY_GRAN_LOG2) if rows is None else [lo]
+            anchor, carry = _cumsum_anchors(tmv, block_start, carry_at)
+            block_rows = _block_rows(lens, block_start, n, device)
+            if rows is not None:
+                block_rows = tuple(t[lo:hi].clone() for t in block_rows)
+            self.n = n
+            self.tau = tau
+            self.rows = rows
+            self.labels = all_labels(tau)
+            self.device = device
+            self._packed = packed
+            self._input_mv = imv
+            self._logs = logs
+            self._block_of, self._is_first, self._is_last = block_rows
+            self._tables = tuple(torch.from_numpy(t).to(device) for t in tables) + (anchor,)
+            self._carry = carry
+            self._planes: Optional[torch.Tensor] = None
 
     def _derive(self, rows) -> torch.Tensor:
         """Columns of the rows `rows` selects along the last axis (a slice,
@@ -399,7 +298,8 @@ class DeviceColumns:
 
     @property
     def planes(self) -> torch.Tensor:
-        """The [C, n] column matrix (derived on first use)."""
+        """The [C, n] column matrix, or a shard's [C, hi - lo] slab (derived
+        on first use)."""
         if self._planes is None:
             self._planes = self._derive(slice(None))
         return self._planes
@@ -419,6 +319,8 @@ class DeviceColumns:
         full matrix. Bit-identical to slices of `.planes`. Host `starts` are
         checked and uploaded; an int64 tensor on the device is the caller's
         to check, and then the call only launches."""
+        if self.rows is not None:
+            raise ValueError("a shard's columns have no granule carries: derive_ranges needs the whole trace")
         if length < (1 << CARRY_GRAN_LOG2):
             raise ValueError("range length below the carry granularity")
         if not isinstance(starts, torch.Tensor):

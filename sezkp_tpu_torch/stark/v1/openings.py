@@ -9,13 +9,14 @@ sources of column values:
 - ``DeviceColumns`` (`dc`): the columns were derived on the device and are
   hashed, committed and opened there; opened values are gathered there too.
 
-On the device the leaf CVs are hashed with kernel K1 and stay resident, only
-chunk roots (KBs) and opening paths (KBs) come back, and the outer trees over
-the chunk roots are built on the host. With `dc`, when the leaf CVs
-(C * n * 32 bytes) would exceed ``cv_budget_bytes`` the commitment keeps the
-chunk roots only and the openings recompute the queried chunks' trees: from
-the column matrix while it is resident, else from ranges derived anew from
-the raw inputs. Roots and paths are bit-identical on every route (reference:
+On the card kernel K13 hashes the columns and builds their chunk trees in
+one launch (blake3_torch.chunk_roots); the leaf CVs stay resident, only
+chunk roots (KBs) and opening paths (KBs, rebuilt with kernel K1) come back,
+and the outer trees over the chunk roots are built on the host. With `dc`,
+when the leaf CVs (C * n * 32 bytes) would exceed ``cv_budget_bytes`` the
+commitment keeps the chunk roots only and the openings recompute the queried
+chunks' trees: from the column matrix while it is resident, else from ranges
+derived anew from the raw inputs. Roots and paths are bit-identical on every route (reference:
 crates/sezkp-stark/src/v1/openings.rs).
 
 ``StreamingColumnEngine`` (the streaming prove's) is host code, copied from
@@ -123,7 +124,7 @@ class ColumnEngine:
             with span("commit.upload", WAIT):
                 vals = FT.pack(vals, self.device)
             with span("commit.hash", LAUNCH):
-                cvs, roots = BT.columns_commit_device(vals, prefixes, self.chunk_log2)
+                cvs, roots = BT.columns_commit_from_planes(vals, prefixes, self.chunk_log2)
         else:
             with span("commit.hash", LAUNCH):
                 if len(self.labels) * self._n * 32 <= self.cv_budget_bytes:

@@ -52,10 +52,8 @@ def partition_trace(tf: TraceFile, b: int) -> List[BlockSummary]:
         off_in = -min_pos
         off_out = cur - min_pos
 
-        # adjacent read-only views into the trace's contiguous log: the
-        # sharded prover's _host_inputs re-assembles the full log zero-copy
-        # from them (columns_device._concat_blocks) instead of re-copying T
-        # rows
+        # adjacent read-only views into the trace's contiguous log, not
+        # copies of T rows: the blocks share the trace's memory
         block_ml = MovementLog(
             input_mv=ml.input_mv[lo:hi],
             tape_mv=ml.tape_mv[lo:hi],

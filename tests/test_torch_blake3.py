@@ -92,6 +92,29 @@ def test_parent_level_matches_jax():
     assert np.array_equal(got, want)
 
 
+def _resident_paths(cvs, cols, starts, idxs, chunk_log2):
+    """chunk_path_planes as ColumnEngine.open_batch runs it over resident
+    leaf CVs: (paths uint8 [K, chunk_log2, 32], chunk roots uint8 [K, 32])."""
+    planes, roots = BT.chunk_path_planes(cvs, *(BT._as_index(a, cvs.device) for a in (cols, starts, idxs)),
+                                         chunk_log2)
+    return BT.path_planes_to_bytes(planes, len(starts), chunk_log2), BT.cv_planes_to_bytes(roots)
+
+
+def _rebuilt_paths(table, src, prefixes, idxs, chunk_log2):
+    """chunk_tree_planes as ColumnEngine.open_batch runs it without resident
+    leaf CVs: request k opens leaf idxs[k] of the chunk in row src[k] of
+    `table` (int64 [rows, chunk]), hashed with prefixes[k]; a tree a
+    request. Returns (paths uint8 [K, chunk_log2, 32], roots uint8 [K, 32],
+    the opened values uint64 [K])."""
+    k, dev = len(src), table.device
+    order, bounds = BT.prefix_groups(prefixes)
+    planes, roots, opened = BT.chunk_tree_planes(
+        table[BT._as_index(src, dev)], BT._as_index(order, dev), bounds,
+        torch.arange(k, device=dev), BT._as_index(idxs, dev), chunk_log2)
+    return (BT.path_planes_to_bytes(planes, k, chunk_log2), BT.cv_planes_to_bytes(roots),
+            FT.unpack(opened))
+
+
 def test_columns_commit_and_chunk_paths_match_jax():
     rng = np.random.default_rng(7)
     chunk_log2 = 5
@@ -100,7 +123,7 @@ def test_columns_commit_and_chunk_paths_match_jax():
     vals = rng.integers(0, P, (3, 256), dtype=np.uint64)
 
     cvs_j, croots_j = BJ.columns_commit_device(vals, prefixes, chunk_log2, resident=True)
-    cvs_t, roots_t = BT.columns_commit_device(FT.pack(vals), prefixes, chunk_log2)
+    cvs_t, roots_t = BT.columns_commit_from_planes(FT.pack(vals), prefixes, chunk_log2)
     assert np.array_equal(BT.croots_to_host(roots_t), croots_j)
     # leaf CVs: JAX keeps [C, n, 8] rows, the port [C, 8, n] planes
     assert np.array_equal(
@@ -115,7 +138,7 @@ def test_columns_commit_and_chunk_paths_match_jax():
     paths_j, roots_j = BJ.chunk_paths_device(
         jnp.asarray(cvs_j).reshape(-1, 8), cols * n + starts, idxs, chunk_log2
     )
-    paths_t, r_t = BT.chunk_paths_device(cvs_t, cols, starts, idxs, chunk_log2)
+    paths_t, r_t = _resident_paths(cvs_t, cols, starts, idxs, chunk_log2)
     assert np.array_equal(paths_t, paths_j)
     assert np.array_equal(r_t, roots_j)
     for k in range(len(rows)):
@@ -168,31 +191,34 @@ def test_chunk_paths_from_planes_and_ranges_match_resident_and_jax():
     prefixes = [_prefix(lb) for lb in lbs]
     vals = rng.integers(0, P, (3, n), dtype=np.uint64)
     planes = FT.pack(vals)
-    cvs, _ = BT.columns_commit_device(planes, prefixes, chunk_log2)
+    cvs, _ = BT.columns_commit_from_planes(planes, prefixes, chunk_log2)
 
     cols = np.array([0, 2, 1, 2, 0])
     rows = np.array([3, 77, 255, 128, 64])
     starts = (rows >> chunk_log2) << chunk_log2
     idxs = rows - starts
     req_prefixes = [prefixes[c] for c in cols]
-    want_paths, want_roots = BT.chunk_paths_device(cvs, cols, starts, idxs, chunk_log2)
+    want_paths, want_roots = _resident_paths(cvs, cols, starts, idxs, chunk_log2)
 
-    paths, roots, opened = BT.chunk_paths_from_planes(
-        planes, cols, starts, idxs, req_prefixes, chunk_log2)
+    # the resident matrix: a chunk is a row of its [C * n / chunk, chunk] view
+    by_chunk = planes.reshape(-1, chunk)
+    src = (cols * n + starts) // chunk
+    paths, roots, opened = _rebuilt_paths(by_chunk, src, req_prefixes, idxs, chunk_log2)
     assert np.array_equal(paths, want_paths) and np.array_equal(roots, want_roots)
     assert np.array_equal(opened, vals[cols, rows])
 
-    # ranges [S, C, chunk]: the distinct chunks of the requests
+    # ranges [S, C, chunk]: the distinct chunks of the requests, a chunk a
+    # row of their [S * C, chunk] view
     uniq, sel = np.unique(starts, return_inverse=True)
     ranges = torch.stack([planes[:, s : s + chunk] for s in uniq])
-    paths_r, roots_r, opened_r = BT.chunk_paths_from_ranges(
-        ranges, sel, cols, idxs, req_prefixes, chunk_log2)
+    paths_r, roots_r, opened_r = _rebuilt_paths(
+        ranges.reshape(-1, chunk), sel * len(lbs) + cols, req_prefixes, idxs, chunk_log2)
     assert np.array_equal(paths_r, want_paths) and np.array_equal(roots_r, want_roots)
     assert np.array_equal(opened_r, opened)
 
     # requests under labels of different prefix lengths in one call
     mixed = [_prefix(lb) for lb in ("input_mv", "head_7", "mv_0", "is_last", "head_7")]
-    paths_m, roots_m, _ = BT.chunk_paths_from_planes(planes, cols, starts, idxs, mixed, chunk_log2)
+    paths_m, roots_m, _ = _rebuilt_paths(by_chunk, src, mixed, idxs, chunk_log2)
     for k, lb in enumerate(("input_mv", "head_7", "mv_0", "is_last", "head_7")):
         leaves = M.hash_field_leaves_labeled(
             G.to_le_bytes(vals[cols[k], starts[k] : starts[k] + chunk]), lb)
@@ -213,8 +239,10 @@ def test_chunk_paths_from_planes_and_ranges_match_resident_and_jax():
     paths_j, roots_j, _, _ = finish(*(np.asarray(o) for o in out))
     assert np.array_equal(paths_r, paths_j) and np.array_equal(roots_r, roots_j)
 
-    empty = BT.chunk_paths_from_planes(planes, [], [], [], [], chunk_log2)
-    assert empty[0].shape == (0, chunk_log2, 32) and empty[2].shape == (0,)
+    empty = _rebuilt_paths(by_chunk, [], [], [], chunk_log2)
+    assert empty[0].shape == (0, chunk_log2, 32) and empty[1].shape == (0, 32)
+    assert empty[2].shape == (0,)
+    assert _resident_paths(cvs, [], [], [], chunk_log2)[0].shape == (0, chunk_log2, 32)
 
 
 # ---------------- single-chunk messages of any length (K7's plain version) ---

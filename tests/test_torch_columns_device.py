@@ -1,7 +1,8 @@
 """Port columns_device (on the CPU) vs the JAX package's columns_device and
 the host numpy columns/composition: derived columns, range derivation, the
 AIR composition (one pass and slab by slab), the packed and unpacked log
-uploads, and the column engine over device columns with zero memory budgets.
+uploads, a rank's shard of the raw inputs, and the column engine over device
+columns with zero memory budgets.
 
 Tolerance: none -- field elements, digests and paths, exact equality."""
 
@@ -50,11 +51,30 @@ def test_columns_equal_jax_and_host(case):
     assert got.shape == (3 + 7 * case["tau"], case["n"])
     assert np.array_equal(got, case["host"])
     assert np.array_equal(got, case["ref_dc"].to_host())
-    # the state carried across: raw inputs and derived planes
-    carried = convert.device_columns_from_reference(case["ref_dc"])
-    assert np.array_equal(carried.to_host(), got)
+    # the state both packages hold: raw inputs and derived planes
+    _same_raw_inputs(case["dc"], case["ref_dc"])
     planes = convert.field_from_planes(np.asarray(case["ref_dc"].lo), np.asarray(case["ref_dc"].hi))
     assert torch.equal(planes, case["dc"].planes)
+
+
+def _same_raw_inputs(dc, ref_dc):
+    """The raw tensors DeviceColumns staged and made on its device equal the
+    JAX package's raw inputs (`_args`, `_anchor`, `_carry`), value for value."""
+    (input_mv, tape, wflag, wsym, block_of, _block_start, is_first, is_last,
+     win_len, in_off, out_off) = (np.asarray(a) for a in ref_dc._args)
+    assert dc._packed == bool(ref_dc._packed)
+    # packed: the JAX package's three log slots share its one u8 plane
+    want_logs = (tape,) if dc._packed else (tape, wflag, wsym)
+    assert len(dc._logs) == len(want_logs)
+    for got, want in zip(dc._logs, want_logs):
+        assert np.array_equal(got.numpy(), want)
+    assert dc._block_of.dtype == torch.int32
+    for got, want in ((dc._input_mv, input_mv), (dc._block_of, block_of),
+                      (dc._is_first, is_first), (dc._is_last, is_last)):
+        assert np.array_equal(got.numpy(), want)
+    for got, want in zip(dc._tables, (win_len, in_off, out_off, np.asarray(ref_dc._anchor))):
+        assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(dc._carry.numpy(), np.asarray(ref_dc._carry))
 
 
 def test_derive_ranges_equal_slices_of_the_planes(case):
@@ -97,82 +117,137 @@ def test_compose_equals_jax_and_host_one_pass_and_slab_by_slab(case, monkeypatch
         assert np.array_equal(FJ.unpack(tuple(np.asarray(x) for x in ref)), want)
 
 
-def _raw_unpacked(h):
-    return (
-        np.ascontiguousarray(h["tape_mv"].T),
-        np.ascontiguousarray(h["wflag"].astype(np.uint8).T),
-        np.ascontiguousarray(h["wsym"].astype(np.int32).T),
-    )
+def _wide_alphabet(blocks):
+    for b in blocks:
+        b.movement_log.write_sym = b.movement_log.write_sym.copy()
+    blocks[1].movement_log.write_sym[3, 1] = 40000
+    return blocks
 
 
 def test_packed_and_unpacked_log_uploads_agree():
     blocks = partition_trace(generate_trace(1 << 11, 2), 256)
     dc = CD.DeviceColumns(blocks, "cpu")
     assert dc._packed
-    h = CD._host_inputs(blocks)
-    pk = CD.pack_logs(h["tape_mv"].T, h["wflag"].T, h["wsym"].T)
-    assert np.array_equal(pk, RCD.pack_logs(h["tape_mv"].T, h["wflag"].T, h["wsym"].T))
-    tmv, wfl, wsy = CD._unpack_logs(torch.from_numpy(np.ascontiguousarray(pk)))
+    h = RCD._host_inputs(blocks)
+    (pk,) = dc._logs
+    assert np.array_equal(pk.numpy(), RCD.pack_logs(h["tape_mv"].T, h["wflag"].T, h["wsym"].T))
+    tmv, wfl, wsy = CD._unpack_logs(pk)
     assert np.array_equal(tmv.numpy(), h["tape_mv"].T)
     assert np.array_equal(wfl.numpy(), h["wflag"].T.astype(np.uint8))
     assert np.array_equal(wsy.numpy(), h["wsym"].T.astype(np.int32))
-
-    anchor, carry = CD._cumsum_anchors(torch.from_numpy(h["tape_mv"].copy()), h["n"], h["tau"],
-                                       h["block_start"])
-    unpacked = CD.DeviceColumns.from_raw(
-        h["n"], h["tau"], False, h["input_mv"], _raw_unpacked(h), h["block_of"],
-        h["is_first"], h["is_last"], CD._block_table(h["win_len"]),
-        CD._block_table(h["in_off"]), CD._block_table(h["out_off"]), anchor, carry, "cpu",
-    )
-    assert torch.equal(unpacked.planes, dc.planes)
-    assert torch.equal(unpacked.derive_ranges([1024], 1024), dc.derive_ranges([1024], 1024))
+    _same_raw_inputs(dc, RCD.DeviceColumns(blocks))
+    tc = TraceColumns.build(blocks)
+    host = np.stack([tc.column_by_label(lb) for lb in all_labels(2)])
+    assert np.array_equal(dc.to_host(), host)
 
     # an alphabet above 15 symbols does not fit the packed layout
-    for b in blocks:
-        b.movement_log.write_sym = b.movement_log.write_sym.copy()
-    blocks[1].movement_log.write_sym[3, 1] = 40000
-    wide = CD.DeviceColumns(blocks, "cpu")
+    wide = CD.DeviceColumns(_wide_alphabet(blocks), "cpu")
     assert not wide._packed
+    h = RCD._host_inputs(blocks)
+    for got, want in zip(wide._logs, (h["tape_mv"].T, h["wflag"].T.astype(np.uint8),
+                                      h["wsym"].T.astype(np.int32))):
+        assert np.array_equal(got.numpy(), want)
+    ref_wide = RCD.DeviceColumns(blocks)
+    _same_raw_inputs(wide, ref_wide)
     tc = TraceColumns.build(blocks)
     host = np.stack([tc.column_by_label(lb) for lb in all_labels(2)])
     assert np.array_equal(wide.to_host(), host)
-    assert np.array_equal(wide.to_host(), RCD.DeviceColumns(blocks).to_host())
+    assert np.array_equal(wide.to_host(), ref_wide.to_host())
+    assert np.array_equal(FT.unpack(wide.derive_ranges([1024], 1024)[0]), host[:, 1024:2048])
 
 
 def test_anchors_by_segment_sums_equal_the_full_cumsum():
     blocks = partition_trace(generate_trace(1 << 12, 2), 256)
-    h = CD._host_inputs(blocks)
+    h = RCD._host_inputs(blocks)
     tmv = torch.from_numpy(h["tape_mv"].copy())
-    anchor, carry = CD._cumsum_anchors(tmv, h["n"], h["tau"], h["block_start"])
+    grid = np.arange(0, h["n"], 1024)
+    anchor, carry = CD._cumsum_anchors(tmv, h["block_start"], grid)
     csum = np.cumsum(h["tape_mv"].astype(np.int64), axis=0)
     excl = np.vstack([np.zeros((1, h["tau"]), np.int64), csum])
     assert anchor.dtype == carry.dtype == torch.int32
     assert np.array_equal(anchor.numpy(), excl[h["block_start"]].T)
-    assert np.array_equal(carry.numpy(), excl[np.arange(0, h["n"], 1024)].T)
+    assert np.array_equal(carry.numpy(), excl[grid].T)
+    ref = RCD.DeviceColumns(blocks)
+    assert np.array_equal(anchor.numpy(), np.asarray(ref._anchor))
+    assert np.array_equal(carry.numpy(), np.asarray(ref._carry))
     # block starts off the segment grid take the full-cumsum form
     ragged = np.array([0, 100, 1000, 3000], dtype=np.int32)
-    a2, c2 = CD._cumsum_anchors(tmv, h["n"], h["tau"], ragged)
+    a2, c2 = CD._cumsum_anchors(tmv, ragged, grid)
     assert np.array_equal(a2.numpy(), excl[ragged].T)
     assert np.array_equal(c2.numpy(), carry.numpy())
+    # and so do rows off the granule grid (a shard's first row)
+    rows = np.array([0, 512, 1536, 3000])
+    a3, c3 = CD._cumsum_anchors(tmv, h["block_start"], rows)
+    assert np.array_equal(a3.numpy(), anchor.numpy())
+    assert np.array_equal(c3.numpy(), excl[rows].T)
 
 
 def test_device_staged_inputs_equal_the_host_ones():
     """The raw inputs DeviceColumns stages and derives on its device are the
-    host arrays of _host_inputs: the packed plane, the block rows and the
-    cumsum anchors."""
+    JAX package's host arrays (_host_inputs, pack_logs): the packed plane,
+    the block rows and tables, and the cumsum anchors."""
     blocks = partition_trace(generate_trace(1 << 12, 8), 512)
-    h = CD._host_inputs(blocks)
+    h = RCD._host_inputs(blocks)
     dc = CD.DeviceColumns(blocks, "cpu")
     assert dc._packed
     (pk,) = dc._logs
-    assert np.array_equal(pk.numpy(), CD.pack_logs(h["tape_mv"].T, h["wflag"].T, h["wsym"].T))
+    assert np.array_equal(pk.numpy(), RCD.pack_logs(h["tape_mv"].T, h["wflag"].T, h["wsym"].T))
     assert np.array_equal(dc._input_mv.numpy(), h["input_mv"])
     assert dc._block_of.dtype == torch.int32
     assert np.array_equal(dc._block_of.numpy(), h["block_of"])
     assert np.array_equal(dc._is_first.numpy(), h["is_first"])
     assert np.array_equal(dc._is_last.numpy(), h["is_last"])
     for got, want in zip(dc._tables[:3], ("win_len", "in_off", "out_off")):
-        assert np.array_equal(got.numpy(), CD._block_table(h[want]))
+        assert np.array_equal(got.numpy(), h[want].T & 0xFFFFFFFF)
+    excl = np.vstack([np.zeros((1, 8), np.int64), np.cumsum(h["tape_mv"].astype(np.int64), axis=0)])
+    assert np.array_equal(dc._tables[3].numpy(), excl[h["block_start"]].T)
+    assert np.array_equal(dc._carry.numpy(), excl[::1024][: h["n"] >> 10].T)
+
+
+@pytest.mark.parametrize("t,b,tau,d,wide", [
+    (1 << 12, 256, 2, 2, False),
+    (1 << 12, 1000, 2, 4, False),  # shards start inside blocks
+    (1 << 12, 512, 8, 8, False),  # n/D = 512, below the 2^10 granule
+    (1 << 12, 256, 2, 2, True),  # unpacked logs
+], ids=["T12_b256_tau2_D2", "T12_b1000_tau2_D4", "T12_b512_tau8_D8", "T12_b256_tau2_D2_wide"])
+def test_shard_planes_are_slices_of_the_whole(t, b, tau, d, wide):
+    """Every rank's DeviceColumns(rows=...) derives the whole trace's columns
+    of its rows: the packing decided and the anchors summed over the whole
+    trace, the carry at its first row."""
+    blocks = partition_trace(generate_trace(t, tau), b)
+    if wide:
+        _wide_alphabet(blocks)
+    whole = CD.DeviceColumns(blocks, "cpu")
+    assert whole._packed != wide
+    tape = np.concatenate([bl.movement_log.tape_mv for bl in blocks]).astype(np.int64)
+    for r in range(d):
+        lo, hi = r * t // d, (r + 1) * t // d
+        shard = CD.DeviceColumns(blocks, "cpu", rows=(lo, hi))
+        assert shard._packed == whole._packed
+        assert tuple(shard._input_mv.shape) == (hi - lo,)
+        assert all(a.shape[-1] == hi - lo for a in shard._logs)
+        assert np.array_equal(shard._carry.numpy()[:, 0], tape[:lo].sum(axis=0))
+        assert torch.equal(shard._tables[3], whole._tables[3])
+        # what the rank keeps is its own, no view of a whole-trace buffer
+        # (the input moves are left out: on the CPU their upload is a view
+        # of the staged rows by design, on the card a copy of its rows)
+        for a in (shard._carry, shard._block_of, shard._is_first, shard._is_last, *shard._logs,
+                  *shard._tables):
+            assert a.untyped_storage().nbytes() == a.numel() * a.element_size()
+        assert torch.equal(shard.planes, whole.planes[:, lo:hi])
+        shard.release_planes()
+        assert not shard.planes_resident
+        assert torch.equal(shard.planes, whole.planes[:, lo:hi])
+
+
+def test_derive_ranges_refuses_a_shard():
+    blocks = partition_trace(generate_trace(1 << 12, 2), 256)
+    shard = CD.DeviceColumns(blocks, "cpu", rows=(2048, 4096))
+    with pytest.raises(ValueError):
+        shard.derive_ranges([0], 1024)
+    for rows in ((2048, 2048), (-1, 1024), (0, 4097)):  # no rows, or rows off the trace
+        with pytest.raises(ValueError):
+            CD.DeviceColumns(blocks, "cpu", rows=rows)
 
 
 @pytest.mark.parametrize("t,b,tau", [(1 << 12, 1000, 2), (1 << 12, 300, 8), (3000, 256, 3)],
